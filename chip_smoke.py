@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / H100 port of scan-to-map VFM registration on one card.
+"""Drive the PyTorch / H100 port of VFM registration on one card.
 
     python3 chip_smoke.py
 
 Needs one CUDA card and `nvcc`; takes no arguments. It builds the port's CUDA
 kernels from `vfmreg_tpu_torch/csrc/`, holds each against its plain PyTorch
-version at the shapes of the main path, then registers B = 8 scans of 16,384
-points against a 524,288-point map with 384-d descriptors (bench.py's
-primary workload, 1000-iteration budget, random data from a seed) through
-`vfmreg_tpu_torch.scan_to_map`, and checks every lane against its true pose.
+version at the shapes each path gives it (B3 also against `build_nn_cache`,
+bit for bit), and drives two paths, each of which runs all three kernels:
+
+* slice: B = 8 scans of 16,384 points registered against a 524,288-point map
+  with 384-d descriptors (bench.py's primary workload, 1000-iteration
+  budget, random data from a seed) through `vfmreg_tpu_torch.scan_to_map`,
+  every lane checked against its true pose;
+* driver: the evaluation driver's method row on bench.py's driver scene at
+  the same widths (B = 8 scans of 16,384 points, 524,288-point 384-d map,
+  seed 0) through `vfmreg_tpu_torch.pipeline.registration_node
+  .precompute_scene_batched`: GT ICP and the vfm RANSAC + refine ICP rows
+  checked against the true poses on every lane, the vanilla ICP row
+  reported.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, and fails unless every kernel of the path was launched as often as
+the path's own counts say: B1 at least once, B2 once per GN iteration of
+the geometric ICP, B3 once per champion rebuild.
 
 It prints one JSON line per phase (device, build, data, warmup, kernel_check
-for each kernel, slice), then the `kernels` line, the card's name and power
-limit, and last `{"ok": true, "device": {...}}`. Any failed check raises and
-the script exits nonzero; without CUDA, or without the port package beside
-it, it exits nonzero before printing any result.
+for each kernel on the slice, slice, driver_data, kernel_check for each
+kernel on the driver row, driver), then the `kernels` line (per kernel the
+driver row's numbers, and each path's under "paths"), the
+card's name and power limit, and last `{"ok": true, "device": {...}}`. Any
+failed check raises and the script exits nonzero; without CUDA, or without
+the port package beside it, it exits nonzero before printing any result.
 """
 
 import json
@@ -25,7 +41,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# bench.py:326-327, the reference's production shapes.
+# bench.py:326-327, the reference's production shapes; bench.py:352 runs the
+# driver scene at the same widths.
 BATCH, N_MAP, N_SCAN, DIM, N_VFM, MAX_ITERATIONS = 8, 524288, 16384, 384, 512, 1000
 SEED = 0
 DEVICE = "cuda"
@@ -39,6 +56,8 @@ SIM_ATOL, GAP, MOMENT_RTOL = 1e-5, 1e-5, 1e-4
 # Published peaks of an H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM3
 # rate and f32 CUDA-core rate. The PCIe card is slower.
 PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12)}
+# The numbers of a kernel row that are kept for each path that runs it.
+PATH_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def emit(obj):
@@ -81,7 +100,10 @@ def top2_gap(q, db, mask, chunk=8192):
     return top[:, 0] - top[:, 1]
 
 
-def check_cosine(qn, dbn, valid, peaks):
+def check_cosine(path, qn, dbn, valid, live, peaks):
+    """Kernel B1 against its plain version on the queries [N, D] that `path`
+    hands it; `live` [N] marks the rows that are real queries (the rest are
+    the batch's padding), of which most must have a decisive best match."""
     import torch
 
     from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax, cosine_argmax_plain
@@ -93,7 +115,7 @@ def check_cosine(qn, dbn, valid, peaks):
     torch.cuda.synchronize()
     err = float((sim_k - sim_p).abs().max())
     idx_bad = int(((idx_k != idx_p) & decisive).sum())
-    ok = err <= SIM_ATOL and idx_bad == 0 and bool(decisive.float().mean() > 0.5)
+    ok = err <= SIM_ATOL and idx_bad == 0 and bool(decisive[live].float().mean() > 0.5)
 
     def library():
         sim = torch.mm(qn, dbn.T)
@@ -115,24 +137,26 @@ def check_cosine(qn, dbn, valid, peaks):
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": library_ms,
     }
-    emit({"phase": "kernel_check", "kernel": "cosine_argmax", "shape": [n, dbn.shape[0], d],
-          "m_valid": m_valid, "idx_disagree_decisive": idx_bad,
+    row["shape"] = [n, dbn.shape[0], d]
+    emit({"phase": "kernel_check", "path": path, "kernel": "cosine_argmax",
+          "m_valid": m_valid, "live_queries": int(live.sum()), "idx_disagree_decisive": idx_bad,
           "idx_disagree_within_gap": int(((idx_k != idx_p) & ~decisive).sum()),
-          "decisive_queries": int(decisive.sum()), "tflops": flops / ms / 1e9,
+          "decisive_live_queries": int(decisive[live].sum()), "tflops": flops / ms / 1e9,
           "seconds": time.perf_counter() - t0, **row})
     if not ok:
         raise RuntimeError(f"cosine_argmax disagrees with its plain version: err={err} idx_bad={idx_bad}")
     return row
 
 
-def check_gn(cache, source, center, peaks):
+def check_gn(path, cache, source, center, kernel, max_dist, peaks):
+    """Kernel B2 against its plain version on one champion cache of `path`,
+    with that path's Geman-McClure kernel and distance gate."""
     import torch
 
     from vfmreg_tpu_torch.ops.gn_kernel import gn_moments_from_cache, gn_terms_plain
-    from vfmreg_tpu_torch.scan_to_map import KERNEL, MAX_CORRESPONDENCE_DISTANCE as MAX_DIST
 
     t0 = time.perf_counter()
-    args = (cache.cx, cache.cy, cache.cz, source, center, KERNEL, MAX_DIST)
+    args = (cache.cx, cache.cy, cache.cz, source, center, kernel, max_dist)
     m_k = gn_moments_from_cache(*args)
     terms = gn_terms_plain(*args)
     m_p, scale = terms.sum(dim=1), terms.abs().sum(dim=1)
@@ -153,12 +177,149 @@ def check_gn(cache, source, center, peaks):
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
         "library_ms": None,
     }
-    emit({"phase": "kernel_check", "kernel": "gn_moments_from_cache", "shape": [k, n],
+    row["shape"] = [k, n]
+    emit({"phase": "kernel_check", "path": path, "kernel": "gn_moments_from_cache",
+          "kernel_width": kernel, "max_dist": max_dist,
           "max_rel_err_of_scale": float((diff / scale.clamp(min=1e-30)).max()),
           "accepted": float(m_p[0]), "seconds": time.perf_counter() - t0, **row})
     if not ok:
         raise RuntimeError(f"gn_moments_from_cache disagrees with its plain version: {diff.tolist()}")
     return row
+
+
+def check_champions(path, planes, src, mask, group, ref_cache, peaks):
+    """Kernel B3 against its plain version and against `build_nn_cache`'s
+    planes on one slab gather: all three must be equal bit for bit."""
+    import torch
+
+    from vfmreg_tpu_torch.ops.champion_kernel import champions_from_planes, champions_from_planes_plain
+
+    t0 = time.perf_counter()
+    args = (*planes, src, mask, group)
+    got = champions_from_planes(*args)
+    plain = champions_from_planes_plain(*args)
+    torch.cuda.synchronize()
+    ref = (ref_cache.cx, ref_cache.cy, ref_cache.cz)
+    equal_plain = all(torch.equal(a, b) for a, b in zip(got, plain))
+    equal_cache = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    alive = int((got[0][:27] < 1e19).sum())
+    ok = equal_plain and equal_cache and alive > 0
+    ms = cuda_time_ms(lambda: champions_from_planes(*args), reps=200, warmup=10)
+    plain_ms = cuda_time_ms(lambda: champions_from_planes_plain(*args), reps=20)
+    kg, n = planes[0].shape
+    nbytes = 4.0 * (3 * kg * n + 3 * n + 3 * 32 * n) + n
+    flops = 8.0 * kg * n
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    row = {
+        "name": "champions_from_planes", "route": "cuda", "ok": ok,
+        "source": "vfmreg_tpu_torch/csrc/champions_from_planes.cu",
+        "replaces": "vfmreg_tpu/ops/champion_kernel.py:81",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": None,
+    }
+    row["shape"] = [kg, n]
+    emit({"phase": "kernel_check", "path": path, "kernel": "champions_from_planes", "group": group, "equal_plain": equal_plain, "equal_build_nn_cache": equal_cache,
+          "alive_champions": alive, "gbytes_per_s": nbytes / ms / 1e6,
+          "seconds": time.perf_counter() - t0, **row})
+    if not ok:
+        raise RuntimeError(f"champions_from_planes disagrees: plain {equal_plain}, "
+                           f"build_nn_cache {equal_cache}, alive {alive}")
+    return row
+
+
+def drive_driver(dev, peaks, rows):
+    """The driver phase: every kernel checked at the driver's shapes (into
+    `rows`), then the method row once, counted, timed and gated."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops.hash_grid import build_nn_cache, gather_candidate_slabs
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+    from vfmreg_tpu_torch.pipeline import registration_node as rn
+    from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene
+    from vfmreg_tpu_torch.registration.icp import champion_group
+    from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, VOXEL_SIZE
+    from vfmreg_tpu_torch.ops.matching import l2_normalize
+
+    t0 = time.perf_counter()
+    scene, local_map, true_poses = make_synthetic_scene(BATCH, N_MAP, N_SCAN, DIM, seed=SEED)
+    # Device-resident scene, as bench.py's driver workload keeps it: the
+    # map and the stacked scans are on the card before the row starts.
+    raw, raw_mask = rn.stack_scans(scene["scene_point_clouds"], local_map.shape[1])
+    scene["scene_point_clouds_device"] = (torch.from_numpy(raw).to(dev), torch.from_numpy(raw_mask).to(dev))
+    lm = torch.from_numpy(local_map).to(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "driver_data", "seconds": time.perf_counter() - t0, "map": list(local_map.shape),
+          "scans": list(raw.shape), "scan_points": [int(c.shape[0]) for c in scene["scene_point_clouds"]]})
+
+    # Kernel inputs at the row's shapes. B1: the 5 m queries of all B scans,
+    # flattened as the row's matching hands them over (q5_budget rows per
+    # scan, most of them padding), against the map grid's descriptors. B2
+    # and B3: one slab gather of scan 0 at the vanilla row's start (the
+    # identity), at the row's ICP width W, with the vanilla row's kernel.
+    grid = rn.build_map_grid(lm, VOXEL_SIZE, dev)
+    p3, _, m3, counts3, _, q5f, q5m, _ = rn._preprocess_scans_device(
+        *scene["scene_point_clouds_device"], VOXEL_SIZE, 2048)
+    qn = l2_normalize(q5f.reshape(-1, DIM)).contiguous()
+    rows["cosine_argmax"] = check_cosine("driver", qn, l2_normalize(grid.feats).contiguous(),
+                                         grid.valid, q5m.reshape(-1), peaks)
+    del qn, q5f
+    w = min(bucket_size(int(counts3.max())), p3.shape[1])
+    src, mask = p3[0, :w].contiguous(), m3[0, :w].contiguous()
+    cands = gather_candidate_slabs(grid, src, mask)
+    cache = build_nn_cache(cands, src, mask)
+    group = champion_group(grid, cands)
+    rows["champions_from_planes"] = check_champions("driver", cands.planes(group), src, mask, group,
+                                                    cache, peaks)
+    center = src[mask].mean(dim=0).tolist()
+    rows["gn_moments_from_cache"] = check_gn("driver", cache, src, center, INITIAL_THRESHOLD / 7,
+                                             7 * INITIAL_THRESHOLD, peaks)
+    del grid, p3, m3, cands, cache
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = rn.precompute_scene_batched(scene, lm, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    st = res["stats"]
+    errs = {k: [compute_errors(p, t) for p, t in zip(res[key], true_poses)]
+            for k, key in (("gt", "gt"), ("vfm_ransac", "vfm_ransac_ortho"),
+                           ("vfm_ransac_icp", "vfm_ransac_icp"), ("icp", "icp"))}
+    gated = ("gt", "vfm_ransac_icp")
+    lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for k in gated for rte, rre in errs[k])
+    gn_iterations = sum(sum(v) for v in st["iterations"].values())
+    rebuilds = sum(sum(v) for v in st["rebuilds"].values())
+    launches_ok = (launches.get("cosine_argmax", 0) >= 1
+                   and launches.get("gn_moments_from_cache", 0) == gn_iterations
+                   and rebuilds > 0 and launches.get("champions_from_planes", 0) == rebuilds)
+    table = rn.recall_table(rn.method_errors(res))
+    emit({"phase": "driver", "ok": lanes_ok and launches_ok, "seconds": seconds,
+          "reg_per_s": BATCH / seconds, "batch": BATCH, "map_points": N_MAP, "scan_points": N_SCAN,
+          "dim": DIM, "stage_seconds": st["seconds"], "icp_width": st["icp_width"],
+          "corr_width": st["corr_width"], "corr_counts": res["corr_counts"],
+          "snap_counts": res["snap_counts"], "scan_sizes": res["scan_sizes"], "retried": res["retried"],
+          "rte_m": {k: [e[0] for e in v] for k, v in errs.items()},
+          "rre_deg": {k: [e[1] for e in v] for k, v in errs.items()},
+          "iterations": st["iterations"], "settled": st["settled"], "rebuilds": st["rebuilds"],
+          "gn_iterations": gn_iterations, "champion_rebuilds": rebuilds, "launches": launches,
+          "recall_vs_gt_icp": {k: dict(zip([f"{t},{r}" for t, r in rn.THRESHOLDS], v))
+                               for k, v in table.items()},
+          "vanilla_recall_vs_true": float(np.mean([rte < RTE_GATE_M and rre < RRE_GATE_DEG
+                                                   for rte, rre in errs["icp"]])),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if not lanes_ok:
+        raise RuntimeError(f"driver recall gate failed: {errs}")
+    if not launches_ok:
+        raise RuntimeError(f"the driver row did not go through every kernel as counted: {launches}, "
+                           f"GN iterations {gn_iterations}, champion rebuilds {rebuilds}")
+    return launches
 
 
 def main() -> int:
@@ -173,7 +334,11 @@ def main() -> int:
         from vfmreg_tpu_torch.ops import _build
         from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid, build_nn_cache, gather_candidate_slabs
         from vfmreg_tpu_torch.ops.matching import l2_normalize
-        from vfmreg_tpu_torch.scan_to_map import MAP_VOXEL_SIZE, scan_to_map, shared_map_batch, vfm_queries
+        from vfmreg_tpu_torch.pipeline import registration_node  # noqa: F401
+        from vfmreg_tpu_torch.registration.icp import champion_group
+        from vfmreg_tpu_torch.scan_to_map import (
+            KERNEL, MAP_VOXEL_SIZE, MAX_CORRESPONDENCE_DISTANCE, scan_to_map, shared_map_batch, vfm_queries,
+        )
         from vfmreg_tpu_torch.utils.precision import full_precision
     except ImportError as e:
         print(f"chip_smoke: the vfmreg_tpu_torch package is not beside this script ({e})",
@@ -189,7 +354,7 @@ def main() -> int:
           "peak_bytes_per_s": peaks[0], "peak_f32_flops": peaks[1]})
 
     t0 = time.perf_counter()
-    _build.build(["cosine_argmax", "gn_moments"])
+    _build.build(["cosine_argmax", "gn_moments", "champions_from_planes"])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
@@ -216,16 +381,21 @@ def main() -> int:
     # at its initial position (B2).
     grid = build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf)
     sm = torch.ones(sp.shape[:2], dtype=torch.bool, device=dev)
-    _, f5, _ = vfm_queries(sp, sf, sm, N_VFM)
+    _, f5, m5 = vfm_queries(sp, sf, sm, N_VFM)
     qn = l2_normalize(f5.reshape(-1, DIM)).contiguous()
     dbn = l2_normalize(grid.feats).contiguous()
-    rows = [check_cosine(qn, dbn, grid.valid, peaks)]
+    rows = {"slice": {"cosine_argmax": check_cosine("slice", qn, dbn, grid.valid, m5.reshape(-1), peaks)}}
     del qn, dbn
-    src = sp[0]
-    cache = build_nn_cache(gather_candidate_slabs(grid, src, sm[0]), src, sm[0])
+    src = sp[0].contiguous()
+    cands = gather_candidate_slabs(grid, src, sm[0])
+    cache = build_nn_cache(cands, src, sm[0])
+    group = champion_group(grid, cands)
+    rows["slice"]["champions_from_planes"] = check_champions(
+        "slice", cands.planes(group), src, sm[0].contiguous(), group, cache, peaks)
     center = src.mean(dim=0).tolist()
-    rows.append(check_gn(cache, src.contiguous(), center, peaks))
-    del grid, cache
+    rows["slice"]["gn_moments_from_cache"] = check_gn(
+        "slice", cache, src, center, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
+    del grid, cands, cache
     torch.cuda.empty_cache()
 
     # The main path, counted and timed end to end (grid build included).
@@ -236,23 +406,45 @@ def main() -> int:
     launches = dict(_build.LAUNCHES)
     errs = [compute_errors(p.astype("float64"), t) for p, t in zip(res.poses, scene.true_poses)]
     phase2 = int((res.iterations - res.vfm_iterations).sum())
+    rebuilds = int(res.rebuilds.sum())
     lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for rte, rre in errs)
-    launches_ok = launches.get("cosine_argmax", 0) >= 1 and launches.get("gn_moments_from_cache", 0) == phase2
+    launches_ok = (launches.get("cosine_argmax", 0) >= 1
+                   and launches.get("gn_moments_from_cache", 0) == phase2
+                   and rebuilds > 0 and launches.get("champions_from_planes", 0) == rebuilds)
     emit({"phase": "slice", "ok": lanes_ok and launches_ok, "seconds": seconds,
           "reg_per_s": BATCH / seconds, "batch": BATCH, "map_points": N_MAP, "scan_points": N_SCAN,
           "dim": DIM, "n_vfm": N_VFM, "max_iterations": MAX_ITERATIONS,
           "iterations": res.iterations.tolist(), "vfm_iterations": res.vfm_iterations.tolist(),
-          "phase2_iterations": phase2, "n_correspondences": res.n_correspondences.tolist(),
+          "phase2_iterations": phase2, "rebuilds": rebuilds,
+          "n_correspondences": res.n_correspondences.tolist(),
           "rte_m": [e[0] for e in errs], "rre_deg": [e[1] for e in errs], "launches": launches,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     if not lanes_ok:
         raise RuntimeError(f"recall gate failed: {errs}")
     if not launches_ok:
-        raise RuntimeError(f"the main path did not go through every kernel: {launches}, phase 2 = {phase2}")
-    for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
+        raise RuntimeError(f"the main path did not go through every kernel: {launches}, "
+                           f"phase 2 = {phase2}, rebuilds = {rebuilds}")
+    del mp, mf, sp, sf, res
+    torch.cuda.empty_cache()
 
-    emit({"kernels": rows})
+    # The driver's method row, counted on its own.
+    rows["driver"] = {}
+    by_path = {"slice": launches, "driver": drive_driver(dev, peaks, rows["driver"])}
+
+    # One row per kernel: the numbers of the newest path that runs it (the
+    # driver row runs all three), and under "paths" each path's numbers at
+    # its own shapes with its own launch count.
+    kernels = []
+    for kname in ("cosine_argmax", "gn_moments_from_cache", "champions_from_planes"):
+        per_path = {}
+        for path, checked in rows.items():
+            if kname in checked:
+                per_path[path] = {k: checked[kname][k] for k in PATH_KEYS}
+                per_path[path]["launches"] = by_path[path].get(kname, 0)
+        newest = list(per_path)[-1]
+        kernels.append({**rows[newest][kname], "launches": per_path[newest]["launches"],
+                        "numbers_of_path": newest, "paths": per_path})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

@@ -6,7 +6,8 @@
   absolute values of its terms);
 * `assemble_gn_system`, `build_linear_system` and the unrolled Cholesky
   `gn_step` against the reference's;
-* `geometric_icp_loop` ("slabs" mode) against the reference's, from an offset
+* `geometric_icp_loop` (champions rebuilt by kernel B3's plain version)
+  against the reference's ("slabs" rebuild), from an offset
   large enough for several slab re-gathers and champion rebuilds: equal
   iteration counts and the same pose.
 """

@@ -186,6 +186,19 @@ class Candidates(NamedTuple):
         n, v, S, _ = self.slabs.shape
         return self.slabs[..., 96:128].reshape(n, v, S * 32)
 
+    def planes(self, group: int):
+        """(cxt, cyt, czt), each [27 * g, N] with g = min(group, S * 32): the
+        first g candidate lanes of every neighbour voxel, transposed so that
+        queries run along the last axis (the layout kernel B3,
+        `ops/champion_kernel.py`, reads). Lanes past the per-voxel cap hold
+        only sentinels, so trimming them keeps the champions. One transpose
+        per slab gather, shared by all of the epoch's rebuilds."""
+        n, v, S, _ = self.slabs.shape
+        g = min(group, S * 32)
+        return tuple(
+            a[:, :, :g].permute(1, 2, 0).reshape(v * g, n).contiguous() for a in self.coords()
+        )
+
 
 def gather_candidate_slabs(
     grid: HashGrid, queries: torch.Tensor, query_mask: Optional[torch.Tensor] = None

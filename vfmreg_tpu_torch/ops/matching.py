@@ -3,11 +3,12 @@
 Counterpart of the scan-to-map parts of `vfmreg_tpu/ops/matching.py`: the
 L2-renormalized cosine 1-NN with a minimum-similarity gate
 (`get_vfm_correspondences`, `:155`), its flattened-batch form (`:251`) and
-the masked median / MAD (`:120-137`). The arg-max goes through kernel B1
-(`ops/cosine_kernel.py`) and follows its contract: masked map rows score
--1e30 and the index is clamped to M-1. The reference's CPU path masks with
--inf instead; the two differ only for a query whose every map row is masked,
-which falls below the acceptance gate either way.
+the masked median / MAD (`:120-137`), and the chunked Euclidean 1-NN
+(`_chunked_argmin_l2`, `:79`) that the snap filter runs. The arg-max goes
+through kernel B1 (`ops/cosine_kernel.py`) and follows its contract: masked
+map rows score -1e30 and the index is clamped to M-1. The reference's CPU
+path masks with -inf instead; the two differ only for a query whose every
+map row is masked, which falls below the acceptance gate either way.
 """
 
 from __future__ import annotations
@@ -62,6 +63,31 @@ class VFMCorrespondences(NamedTuple):
     def lane(self, b: int) -> "VFMCorrespondences":
         """The b-th scan of a batched result."""
         return VFMCorrespondences(*(f[b] for f in self))
+
+
+def _chunked_argmin_l2(
+    queries: torch.Tensor, database: torch.Tensor, db_mask: torch.Tensor, chunk: int = 4096
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """argmin_j |q_i - d_j|^2 through the -2ab expansion, streamed over the
+    database in chunks: (best_d2 [..., N], best_idx [..., N] int64) for
+    queries [..., N, 3], database [..., M, 3] and db_mask [..., M] (leading
+    axes broadcast). Masked rows score +inf; the first minimum within a
+    chunk and a strict '<' across chunks give the lowest index on ties, as
+    the reference's scan does. The expansion cancels at world-scale
+    coordinates, so callers centre both clouds first and never gate on
+    `best_d2`."""
+    q2 = torch.sum(queries * queries, dim=-1)
+    best_val = torch.full(q2.shape, float("inf"), dtype=torch.float32, device=queries.device)
+    best_idx = torch.zeros(q2.shape, dtype=torch.int64, device=queries.device)
+    for off in range(0, database.shape[-2], chunk):
+        db = database[..., off : off + chunk, :]
+        val = torch.sum(db * db, dim=-1)[..., None, :] - 2.0 * (queries @ db.transpose(-1, -2))
+        val = torch.where(db_mask[..., None, off : off + chunk], val, float("inf"))
+        v, j = torch.min(val, dim=-1)
+        better = v < best_val
+        best_val = torch.where(better, v, best_val)
+        best_idx = torch.where(better, j + off, best_idx)
+    return torch.clamp(best_val + q2, min=0.0), best_idx
 
 
 def _best_match(scan_feats, map_feats, map_mask) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -96,3 +96,13 @@ def voxel_down_sample_masked(
     compacted = compact_by_mask(sel_orig, *arrays)
     feats_out = compacted[2] if feats is not None else None
     return compacted[1], feats_out, compacted[0]
+
+
+def bucket_size(n: int, base: int = 512) -> int:
+    """Static shape bucket (reference `ops/voxel.py:179`): the smallest
+    base * 2^k >= n. The driver pads scans, maps and correspondence sets to
+    these widths, which fixes the order of every padded reduction."""
+    size = base
+    while size < n:
+        size *= 2
+    return size

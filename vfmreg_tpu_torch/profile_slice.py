@@ -1,18 +1,25 @@
-"""Where the scan-to-map slice spends its time on the card.
+"""Where a path of the port spends its time on the card.
 
-    python -m vfmreg_tpu_torch.profile_slice
+    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver]
 
-Builds the same full-width scene as `chip_smoke.py` (B = 8 scans x 16,384
-points, 524,288-point map, 384-d descriptors, seed 0), warms up once, then
-prints JSON lines:
+Builds the same full-width scene as `chip_smoke.py` for the path (B = 8
+scans x 16,384 points, 524,288-point map, 384-d descriptors, seed 0): the
+scan-to-map slice, or the evaluation driver's method row
+(`pipeline.registration_node.precompute_scene_batched` on
+`pipeline.synthetic`'s scene). It warms up once, then prints JSON lines:
 
-* `stages`: host-clock seconds of each stage run on its own with a
-  synchronize after it (grid build, 5 m voxelize, matching, each lane's
-  VFM-ICP), summed over `--reps` runs;
-* `profile`: one `scan_to_map` call under `torch.profiler`: wall seconds,
-  device-busy seconds (the sum of device self time, which on one stream does
-  not overlap), the idle share, and the kernels that took the most device
-  time.
+* `stages`: host-clock seconds of each stage with a synchronize after it,
+  summed over `--reps` runs (slice: grid build, 5 m voxelize, matching, each
+  lane's VFM-ICP; driver: the row's own stage clock), and for the driver
+  the GN iterations of each ICP row, so that seconds per GN iteration
+  follow;
+* `profile`: one call without the profiler, timed on the host clock
+  (`wall_s`), then one call under `torch.profiler`: its device-busy seconds
+  (the sum of device self time, which on one stream does not overlap), the
+  idle share 1 - busy / wall_s, the profiled call's own wall time and idle
+  share (the profiler slows the host, so these overstate idling), the
+  kernels that took the most device time, and the host operations that took
+  the most host time.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from torch.autograd import DeviceType
 
 from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
 from vfmreg_tpu_torch.ops.matching import get_vfm_correspondences_batched
+from vfmreg_tpu_torch.pipeline import registration_node as rn
+from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene
 from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
 from vfmreg_tpu_torch.scan_to_map import (
     KERNEL,
@@ -47,14 +56,43 @@ def _timed(acc, key, fn):
     return out
 
 
+def _driver(reps, dev):
+    """The driver row's stage clock over `reps` runs; returns one call."""
+    scene, local_map, _ = make_synthetic_scene(8, 524288, 16384, 384, seed=0)
+    raw, raw_mask = rn.stack_scans(scene["scene_point_clouds"], local_map.shape[1])
+    scene["scene_point_clouds_device"] = (
+        torch.from_numpy(raw).to(dev), torch.from_numpy(raw_mask).to(dev)
+    )
+    lm = torch.from_numpy(local_map).to(dev)
+
+    def run():
+        return rn.precompute_scene_batched(scene, lm, device=dev)
+
+    run()  # warm-up
+    acc, its = {}, {}
+    for _ in range(reps):
+        st = run()["stats"]
+        for k, v in st["seconds"].items():
+            acc[k] = acc.get(k, 0.0) + v
+        for k, v in st["iterations"].items():
+            its[k] = its.get(k, 0) + sum(v)
+    print(json.dumps({"stages": acc, "gn_iterations": its, "reps": reps,
+                      "device": torch.cuda.get_device_name(0)}))
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=["slice", "driver"], default="slice")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
     full_precision()
+    if args.path == "driver":
+        _profile(_driver(args.reps, dev), args.top)
+        return
     scene = shared_map_batch(8, 524288, 16384, 384, seed=0)
     mp, mf, sp, sf = (torch.from_numpy(a).to(dev) for a in scene[:4])
     sm = torch.ones(sp.shape[:2], dtype=torch.bool, device=dev)
@@ -72,23 +110,39 @@ def main(argv=None):
             _timed(acc, "vfm_icp_lanes", lambda: register_frame_vfm(
                 grid, sp[i], sm[i], corrs.lane(i), eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL))
     print(json.dumps({"stages": acc, "reps": args.reps, "device": torch.cuda.get_device_name(0)}))
+    _profile(lambda: scan_to_map(mp, mf, sp, sf, device=dev), args.top)
 
+
+def _profile(run, top_n):
+    """One call of `run` on the host clock, then one under `torch.profiler`,
+    summarised as one JSON line."""
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        scan_to_map(mp, mf, sp, sf, device=dev)
+        run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall_profiled = time.perf_counter() - t0
 
+    events = prof.key_averages()
     # Device-side events only: a CPU op's device time repeats its kernels'.
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
             if e.device_type == DeviceType.CUDA]
     busy = sum(us for _, us, _ in rows) / 1e6
-    top = sorted(rows, key=lambda r: -r[1])[: args.top]
+    top = sorted(rows, key=lambda r: -r[1])[:top_n]
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:top_n]
     print(json.dumps({
         "profile": {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+                    "wall_s_profiled": wall_profiled,
+                    "idle_share_profiled": 1.0 - busy / wall_profiled,
                     "top_kernels": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
-                                    for k, us, c in top]},
+                                    for k, us, c in top],
+                    "top_host_ops": [{"name": k[:90], "host_self_ms": us / 1e3, "calls": c}
+                                     for k, us, c in host]},
     }))
 
 

@@ -2,8 +2,11 @@
 
 Counterpart of the scan-to-map parts of `vfmreg_tpu/registration/icp.py`:
 `build_linear_system` (`:83`), the unrolled `_cholesky_solve6` (`:111`),
-`gn_step` (`:141`), `_conjugate_translation` (`:151`) and
-`geometric_icp_loop` (`:159`) in its default "slabs" rebuild mode.
+`gn_step` (`:141`), `_conjugate_translation` (`:151`),
+`geometric_icp_loop` (`:159`) with the reference's "planes" champion
+rebuild on every path (kernel B3), and the entry point `register_frame_icp_stats` (`:478`, through
+`_register_frame_icp_state`, `:396`; the reference's `register_frame_icp`,
+`:443`, is its `.pose`).
 
 Split between host and device: the point clouds, candidate slabs and
 champion caches live on the device; the 6-dof solve, the pose and the stop
@@ -13,8 +16,8 @@ unrolled 6x6 Cholesky is ~100 scalar operations that would otherwise be as
 many kernel launches. The solve is the reference's f32 arithmetic in the
 reference's order, so the |dx| < 1e-4 tests see the same numbers.
 
-Per GN iteration on the device: kernel B2 (`ops/gn_kernel.py`) gives the 17
-moments, `assemble_gn_system` the 6x6 system, and the source is moved by the
+Per champion rebuild on the device: kernel B3 (`ops/champion_kernel.py`).
+Per GN iteration: kernel B2 (`ops/gn_kernel.py`) gives the 17 moments, `assemble_gn_system` the 6x6 system, and the source is moved by the
 step. The reference runs B lanes under `vmap` with masked carries; here each
 lane runs on its own with host-side stop tests, which gives each lane the
 result of the vmapped run.
@@ -28,11 +31,16 @@ import numpy as np
 import torch
 
 from vfmreg_tpu_torch.geometry.se3 import exp_se3, hat_so3, transform_points
+from vfmreg_tpu_torch.ops.champion_kernel import champions_from_planes
 from vfmreg_tpu_torch.ops.gn_kernel import assemble_gn_system, gn_moments_from_cache
-from vfmreg_tpu_torch.ops.hash_grid import HashGrid, build_nn_cache, gather_candidate_slabs
+from vfmreg_tpu_torch.ops.hash_grid import HashGrid, gather_candidate_slabs
 
 MAX_NUM_ITERATIONS = 1000  # Registration.cpp:92
 ESTIMATION_THRESHOLD = 1e-4  # Registration.cpp:93
+# GN budget of the first phase of the drivers' two-phase far-field (vanilla
+# ICP) rows: a lane that has not settled by then resumes from its phase-1
+# pose with the rest of MAX_NUM_ITERATIONS (`parallel/mesh.py`).
+FAR_FIELD_PHASE1_ITERATIONS = 256
 # Champion caches are rebuilt from the epoch's gathered slabs at least every
 # REFRESH_INTERVAL GN iterations (see the reference for the rationale).
 REFRESH_INTERVAL = 16
@@ -110,12 +118,19 @@ def _norm(v: np.ndarray) -> np.float32:
     return np.sqrt(np.sum(v * v, dtype=np.float32), dtype=np.float32)
 
 
+def champion_group(grid: HashGrid, cands) -> int:
+    """Kernel B3's candidate lanes per voxel: the per-voxel cap rounded up
+    to a multiple of 8, which trims the slab's sentinel lanes (20 -> 24 of 32)."""
+    return min(-(-grid.max_points_per_voxel // 8) * 8, 32 * cands.slabs.shape[2])
+
+
 class ICPState(NamedTuple):
     source: torch.Tensor  # [N, 3] device, current world-frame source
     T_icp: torch.Tensor  # [4, 4] host f32, accumulated correction
     it: int  # GN iterations so far (including `it0`)
     done: bool  # stopped on an empty correspondence set
     confirmed: bool  # converged on a freshly rebuilt champion cache
+    rebuilds: int  # champion-cache rebuilds (kernel B3 launches)
 
 
 def geometric_icp_loop(
@@ -141,6 +156,12 @@ def geometric_icp_loop(
       rebuild (fresh-confirmed); a sub-threshold step on a stale cache
       triggers a rebuild and a fresh check instead.
 
+    Each slab gather is transposed once (`Candidates.planes`) and each
+    rebuild is one launch of kernel B3, which gives `build_nn_cache`'s
+    champions bit for bit (the reference's rebuild_mode="planes"; its
+    "slabs" mode is not ported, and `build_nn_cache` stays as the
+    reference the kernel is held against).
+
     `center` is a host f32 [3] tensor; `T_icp0` a host f32 [4, 4]."""
     d2c = torch.sum(torch.square(source0 - center.to(source0.device)), dim=-1)
     r_max = _f32(torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0))).item())
@@ -151,19 +172,21 @@ def geometric_icp_loop(
     source, T_icp, it = source0, T_icp0, int(it0)
     dx_norm = _f32(np.inf)
     done = confirmed = False
+    rebuilds = 0
     while it < max_iterations and not done and not confirmed:
         cands = gather_candidate_slabs(grid, source, mask)
+        group = champion_group(grid, cands)
+        planes = cands.planes(group)
         moved_g = _f32(0.0)
         while it < max_iterations and not done and not confirmed and moved_g < slack:
-            cache = build_nn_cache(cands, source, mask)
+            cx, cy, cz = champions_from_planes(*planes, source, mask, group)
+            rebuilds += 1
             s = 0
             while (
                 s < refresh_interval and it < max_iterations and not done
                 and not confirmed and moved_g < slack and (s == 0 or dx_norm >= thr)
             ):
-                m = gn_moments_from_cache(
-                    cache.cx, cache.cy, cache.cz, source, center_l, kernel, max_dist
-                )
+                m = gn_moments_from_cache(cx, cy, cz, source, center_l, kernel, max_dist)
                 JTJ, JTr, n_corr = assemble_gn_system(m)
                 dx, n_corr = gn_step(JTJ, JTr, n_corr)
                 est = _conjugate_translation(exp_se3(torch.from_numpy(dx)), center)
@@ -175,4 +198,39 @@ def geometric_icp_loop(
                 done = n_corr == 0
                 it += 1
                 s += 1
-    return ICPState(source, T_icp, it, done, confirmed)
+    return ICPState(source, T_icp, it, done, confirmed, rebuilds)
+
+
+class ICPStats(NamedTuple):
+    pose: torch.Tensor  # [4, 4] host f32: T_icp @ initial_guess
+    iterations: int  # GN iterations
+    settled: bool  # stopped on its own (confirmed or no correspondences), not on the budget
+    rebuilds: int  # champion-cache rebuilds
+
+
+def register_frame_icp_stats(
+    grid: HashGrid,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    initial_guess,
+    max_correspondence_distance: float,
+    kernel: float,
+    max_iterations: int = MAX_NUM_ITERATIONS,
+) -> ICPStats:
+    """KISS-ICP `RegisterFrame` for 3D points (`Registration.cpp:145-195`)
+    from `initial_guess` [4, 4], with its iteration count, whether it settled
+    and its champion rebuilds. The GN solve is centred on the mean of the
+    guess-transformed source. A run resumed from the returned pose continues
+    the same trajectory up to that re-centring."""
+    points = points.to(torch.float32)
+    guess = torch.as_tensor(initial_guess).to("cpu", torch.float32)
+    source0 = transform_points(points, guess)
+    denom = torch.clamp(mask.sum(), min=1)
+    center = (torch.where(mask[:, None], source0, 0.0).sum(dim=0) / denom).cpu()
+    final = geometric_icp_loop(
+        grid, source0, mask, torch.eye(4, dtype=torch.float32), center,
+        max_correspondence_distance, kernel, max_iterations, ESTIMATION_THRESHOLD,
+        it0=0,
+    )
+    return ICPStats(final.T_icp @ guess, final.it, final.done or final.confirmed, final.rebuilds)
+

@@ -41,6 +41,7 @@ class VFMResult(NamedTuple):
     corr_mask: torch.Tensor  # [N_c] phase-1 survivors
     vfm_iterations: int  # phase-1 GN iterations
     iterations: int  # all GN iterations (phase 1 + phase 2)
+    rebuilds: int  # phase 2's champion-cache rebuilds (kernel B3 launches)
 
 
 def _masked_mean(d: torch.Tensor, mask: torch.Tensor) -> np.float32:
@@ -112,4 +113,5 @@ def register_frame_vfm(
         corr_mask=corr_mask,
         vfm_iterations=it,
         iterations=s2.it,
+        rebuilds=s2.rebuilds,
     )

@@ -3,8 +3,9 @@
 Counterpart of `bench.py:_run_workload` (`:86-153`), staged the same way:
 build the voxel hash grid of the map once, voxelize each scan at 5 m and keep
 `n_vfm` queries, match the flattened batch against the map descriptors in one
-cosine arg-max (kernel B1), then register each scan with VFM-ICP (kernel B2
-in every geometric GN iteration).
+cosine arg-max (kernel B1), then register each scan with VFM-ICP (kernel B3
+in every champion rebuild and kernel B2 in every GN iteration of its
+geometric phase).
 
 `shared_map_batch` is a copy of `bench.py:_shared_map_batch` (`:46-83`) with
 the same seed semantics, which also returns each scan's true pose.
@@ -93,6 +94,7 @@ class ScanToMapResult(NamedTuple):
     vfm_iterations: np.ndarray  # [B] phase-1 GN iterations
     iterations: np.ndarray  # [B] all GN iterations (phase 2 = the difference)
     n_correspondences: np.ndarray  # [B] accepted cosine correspondences
+    rebuilds: np.ndarray  # [B] phase 2's champion-cache rebuilds
 
 
 def scan_to_map(
@@ -126,7 +128,7 @@ def scan_to_map(
     corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, p5, f5, m5)
 
     eye = torch.eye(4, dtype=torch.float32)
-    poses, it1, it, n_corr = [], [], [], []
+    poses, it1, it, n_corr, rebuilds = [], [], [], [], []
     for i in range(b):
         res = register_frame_vfm(
             grid, sp[i], sm[i], corrs.lane(i), eye,
@@ -136,7 +138,9 @@ def scan_to_map(
         it1.append(res.vfm_iterations)
         it.append(res.iterations)
         n_corr.append(int(corrs.mask[i].sum()))
-    return ScanToMapResult(np.stack(poses), np.array(it1), np.array(it), np.array(n_corr))
+        rebuilds.append(res.rebuilds)
+    return ScanToMapResult(np.stack(poses), np.array(it1), np.array(it), np.array(n_corr),
+                           np.array(rebuilds))
 
 
 def main(argv=None):
