@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and `nvcc`; takes no arguments. It builds the port's CUDA
-kernels from `vfmreg_tpu_torch/csrc/`, holds each against its plain PyTorch
-version at the shapes each path gives it (B3 also against `build_nn_cache`,
-bit for bit), and drives two paths, each of which runs all three kernels:
+Needs one CUDA card and `nvcc`; takes no arguments. It builds the port's five
+CUDA kernels from `vfmreg_tpu_torch/csrc/`, holds each against its plain
+PyTorch version at the shapes each path gives it (B3 also against
+`build_nn_cache`, B4 with a NaN query and an empty neighbourhood added, both
+bit for bit), and drives three paths. The first two run B1-B3:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -17,22 +18,35 @@ bit for bit), and drives two paths, each of which runs all three kernels:
   seed 0) through `vfmreg_tpu_torch.pipeline.registration_node
   .precompute_scene_batched`: GT ICP and the vfm RANSAC + refine ICP rows
   checked against the true poses on every lane, the vanilla ICP row
-  reported.
+  reported;
+* descriptor: the DINOv2 descriptor pass at ViT-S/14 full width (384
+  wide, 12 layers, 6 heads of 64) with random weights from a seeded
+  generator (no checkpoint is in the repository), over 8 clouds of 16,384
+  points and the five-camera synthetic rig (40 images of 1232 x 1616 ->
+  224 x 280, T = 321 tokens) through
+  `vfmreg_tpu_torch.pipeline.prepare_scenes.create_descriptors`: kernel B5
+  once per ViT block, the points with a descriptor exactly those the rig's
+  own projection covers, and every descriptor within cosine 0.9999 of a
+  second run with the plain attention.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path was launched as often as
 the path's own counts say: B1 at least once, B2 once per GN iteration of
-the geometric ICP, B3 once per champion rebuild.
+the geometric ICP, B3 once per champion rebuild, B5 12 times per image. No
+path launches B4 (the ICP takes the fused B2); it is checked at the
+slice's and the driver's champion caches.
 
 It prints one JSON line per phase (device, build, data, warmup, kernel_check
 for each kernel on the slice, slice, driver_data, kernel_check for each
-kernel on the driver row, driver), then the `kernels` line (per kernel the
-driver row's numbers, and each path's under "paths"), the
-card's name and power limit, and last `{"ok": true, "device": {...}}`. Any
-failed check raises and the script exits nonzero; without CUDA, or without
-the port package beside it, it exits nonzero before printing any result.
+kernel on the driver row, driver, kernel_check for B5, descriptor), then
+the `kernels` line (per kernel the newest path's numbers, and each path's
+under "paths"), the card's name and power limit, and last
+`{"ok": true, "device": {...}}`. Any failed check raises and the script
+exits nonzero; without CUDA, or without the port package beside it, it
+exits nonzero before printing any result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,6 +67,12 @@ RTE_GATE_M, RRE_GATE_DEG = 0.3, 1.5
 # pick either row). B2: each moment within MOMENT_RTOL of the sum of the
 # absolute values of its terms (the kernel sums in another order).
 SIM_ATOL, GAP, MOMENT_RTOL = 1e-5, 1e-5, 1e-4
+# B5: max abs error against the einsum softmax (tests/test_vit.py's bar).
+# Descriptor pass: cosine of every covered point's descriptor against the
+# run with plain attention.
+ATTN_ATOL, DESC_COS = 2e-5, 0.9999
+# Descriptor pass: ViT-S/14 (vit.py PRESETS["dinov2_vits14"]), 12 blocks.
+VIT_PRESET, VIT_LAYERS = "dinov2_vits14", 12
 # Published peaks of an H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM3
 # rate and f32 CUDA-core rate. The PCIe card is slower.
 PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12)}
@@ -229,6 +249,175 @@ def check_champions(path, planes, src, mask, group, ref_cache, peaks):
     return row
 
 
+def _bound(nbytes, flops, peaks):
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def check_nn_argmin(path, cache, source, peaks):
+    """Kernel B4 against its plain version, bit for bit, on one champion
+    cache of `path` with its lane's positions, plus one NaN query (column 0)
+    and one empty neighbourhood (column 1, every champion the sentinel)."""
+    import torch
+
+    from vfmreg_tpu_torch.ops.hash_grid import INVALID_COORD
+    from vfmreg_tpu_torch.ops.nn_kernel import NO_ROW, nn_argmin, nn_argmin_plain
+
+    t0 = time.perf_counter()
+    cx, cy, cz = (c.clone() for c in (cache.cx, cache.cy, cache.cz))
+    for c in (cx, cy, cz):
+        c[:, 1] = INVALID_COORD
+    q = source.clone()
+    q[0] = float("nan")
+    args = (cx, cy, cz, q)
+    d2_k, k_k = nn_argmin(*args)
+    d2_p, k_p = nn_argmin_plain(*args)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(d2_k), torch.isnan(d2_p)
+    same_d2 = torch.equal(nan_k, nan_p) and torch.equal(
+        d2_k[~nan_k].view(torch.int32), d2_p[~nan_p].view(torch.int32))
+    same_k = torch.equal(k_k, k_p)
+    probes = bool(nan_k[0]) and int(k_k[0]) == NO_ROW and bool(torch.isinf(d2_k[1])) and int(k_k[1]) == 0
+    finite = int(torch.isfinite(d2_k).sum())
+    ok = same_d2 and same_k and probes and finite > q.shape[0] // 2
+    fin = torch.isfinite(d2_k) & torch.isfinite(d2_p)
+    err = float((d2_k[fin] - d2_p[fin]).abs().max())
+    ms = cuda_time_ms(lambda: nn_argmin(*args), reps=200, warmup=10)
+    plain_ms = cuda_time_ms(lambda: nn_argmin_plain(*args), reps=20)
+    k, n = cx.shape
+    row = {
+        "name": "nn_argmin", "route": "cuda", "ok": ok, "source": "vfmreg_tpu_torch/csrc/nn_argmin.cu",
+        "replaces": "vfmreg_tpu/ops/nn_kernel.py:44",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **_bound(4.0 * (3 * k * n + 3 * n) + 8.0 * n, 8.0 * k * n, peaks),
+        "library_ms": None,
+        "launches_note": "no path of either package calls nn_from_cache: every ICP row takes the fused B2",
+    }
+    row["shape"] = [k, n]
+    emit({"phase": "kernel_check", "path": path, "kernel": "nn_argmin", "equal_d2": same_d2,
+          "equal_k": same_k, "nan_and_empty_probes": probes, "finite_queries": finite,
+          "gbytes_per_s": (4.0 * (3 * k * n + 3 * n) + 8.0 * n) / ms / 1e6,
+          "seconds": time.perf_counter() - t0, **row})
+    if not ok:
+        raise RuntimeError(f"nn_argmin disagrees with its plain version: d2 {same_d2}, k {same_k}, "
+                           f"probes {probes}, finite {finite}")
+    return row
+
+
+def check_flash(path, q, k, v, peaks):
+    """Kernel B5 against the einsum softmax on q, k, v [B, T, H, hd]."""
+    import torch
+    import torch.nn.functional as F
+
+    from vfmreg_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    t0 = time.perf_counter()
+    got = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ok = err <= ATTN_ATOL and bool(torch.isfinite(got).all())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v), reps=200, warmup=10)
+    plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v), reps=50, warmup=5)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=200, warmup=10)
+    b, t, h, hd = q.shape
+    flops = 4.0 * b * h * t * t * hd
+    row = {
+        "name": "flash_attention", "route": "cuda", "ok": ok,
+        "source": "vfmreg_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vfmreg_tpu/ops/flash_attention.py:56",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **_bound(4 * 4.0 * b * t * h * hd, flops, peaks), "library_ms": library_ms,
+    }
+    row["shape"] = [b, t, h, hd]
+    emit({"phase": "kernel_check", "path": path, "kernel": "flash_attention", "gflops": flops / ms / 1e6,
+          "seconds": time.perf_counter() - t0, **row})
+    if not ok:
+        raise RuntimeError(f"flash_attention disagrees with its plain version at {row['shape']}: err={err}")
+    return row
+
+
+def drive_descriptor(dev, peaks, rows):
+    """The descriptor phase: B5 checked on the pass's own q, k, v (block 0 of
+    the first image) and on unit normals, then the pass once, counted, timed
+    and gated, and once more with plain attention for the cosine gate."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
+    from vfmreg_tpu_torch.models.vit import PRESETS
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
+
+    t0 = time.perf_counter()
+    gen = ImageFeatureGenerator("dinov2", config=PRESETS[VIT_PRESET], seed=SEED, device=dev)
+    rig = SyntheticCameraRig(seed=SEED)
+    clouds = [make_rig_cloud(N_SCAN, seed=SEED + i) for i in range(BATCH)]
+    files = [[f"cloud{i}/{cam}.png" for cam in rig.cameras] for i in range(BATCH)]
+    emit({"phase": "descriptor_data", "seconds": time.perf_counter() - t0, "clouds": BATCH,
+          "points": N_SCAN, "cameras": len(rig.cameras), "image": [rig.height, rig.width, 3],
+          "vit": VIT_PRESET, "parameters": sum(p.numel() for p in gen.model.parameters())})
+
+    first = rig.read_images(files[0])[rig.cameras[0]]
+    batch, _ = preprocess_image(first, gen.patch_size, gen.patch_h, dev)
+    with torch.no_grad():
+        blk = gen.model.blocks[0]
+        q, k, v = blk.attn.qkv(blk.norm1(gen.model.tokens(batch)))
+    rows["flash_attention"] = check_flash("descriptor", q, k, v, peaks)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    check_flash("unit_normal", *(torch.randn((2, 200, 4, 32), generator=g).to(dev) for _ in range(3)), peaks)
+    del q, k, v, batch
+
+    def run(generator):
+        return [create_descriptors(f, rig, generator, c) for f, c in zip(files, clouds)]
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    descs = run(gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_images = BATCH * len(rig.cameras)
+
+    t1 = time.perf_counter()
+    plain = run(ImageFeatureGenerator(
+        params=gen.model.state_dict(), config=dataclasses.replace(gen.config, use_flash_attention=False),
+        device=dev))
+    plain_seconds = time.perf_counter() - t1
+
+    covered_ok, cos_min, max_abs, n_covered, n_expected = True, 1.0, 0.0, 0, 0
+    for f, c, d, dp in zip(files, clouds, descs, plain):
+        seen, first_empty = rig.coverage(c, rig.read_images(f))
+        expected = (seen > 0) & ~first_empty
+        covered = np.any(d != 0, axis=1)
+        covered_ok &= bool(np.array_equal(covered, expected))
+        n_covered += int(covered.sum())
+        n_expected += int(expected.sum())
+        a, b = d[expected].astype(np.float64), dp[expected].astype(np.float64)
+        cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-300)
+        cos_min = min(cos_min, float(cos.min()))
+        max_abs = max(max_abs, float(np.abs(d - dp).max()))
+    launches_ok = launches.get("flash_attention", 0) == VIT_LAYERS * n_images
+    ok = covered_ok and launches_ok and cos_min >= DESC_COS
+    emit({"phase": "descriptor", "ok": ok, "seconds": seconds, "images": n_images,
+          "images_per_s": n_images / seconds, "points_per_s": BATCH * N_SCAN / seconds,
+          "plain_attention_seconds": plain_seconds, "covered_points": n_covered,
+          "expected_covered_points": n_expected, "coverage_exact": covered_ok,
+          "min_cosine_vs_plain_attention": cos_min, "max_abs_diff_vs_plain_attention": max_abs,
+          "launches": launches, "peak_memory_bytes": peak})
+    if not covered_ok:
+        raise RuntimeError(f"descriptor coverage differs from the rig's projection: {n_covered} vs {n_expected}")
+    if not launches_ok:
+        raise RuntimeError(f"the descriptor pass did not launch B5 {VIT_LAYERS} x {n_images} times: {launches}")
+    if cos_min < DESC_COS:
+        raise RuntimeError(f"descriptors disagree with plain attention: min cosine {cos_min}")
+    return launches
+
+
 def drive_driver(dev, peaks, rows):
     """The driver phase: every kernel checked at the driver's shapes (into
     `rows`), then the method row once, counted, timed and gated."""
@@ -278,6 +467,7 @@ def drive_driver(dev, peaks, rows):
     center = src[mask].mean(dim=0).tolist()
     rows["gn_moments_from_cache"] = check_gn("driver", cache, src, center, INITIAL_THRESHOLD / 7,
                                              7 * INITIAL_THRESHOLD, peaks)
+    rows["nn_argmin"] = check_nn_argmin("driver", cache, src, peaks)
     del grid, p3, m3, cands, cache
     torch.cuda.empty_cache()
 
@@ -354,7 +544,7 @@ def main() -> int:
           "peak_bytes_per_s": peaks[0], "peak_f32_flops": peaks[1]})
 
     t0 = time.perf_counter()
-    _build.build(["cosine_argmax", "gn_moments", "champions_from_planes"])
+    _build.build(["cosine_argmax", "gn_moments", "champions_from_planes", "flash_attention", "nn_argmin"])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
@@ -395,6 +585,7 @@ def main() -> int:
     center = src.mean(dim=0).tolist()
     rows["slice"]["gn_moments_from_cache"] = check_gn(
         "slice", cache, src, center, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
+    rows["slice"]["nn_argmin"] = check_nn_argmin("slice", cache, src, peaks)
     del grid, cands, cache
     torch.cuda.empty_cache()
 
@@ -427,15 +618,19 @@ def main() -> int:
     del mp, mf, sp, sf, res
     torch.cuda.empty_cache()
 
-    # The driver's method row, counted on its own.
+    # The driver's method row, then the descriptor pass, each counted on its own.
     rows["driver"] = {}
     by_path = {"slice": launches, "driver": drive_driver(dev, peaks, rows["driver"])}
+    torch.cuda.empty_cache()
+    rows["descriptor"] = {}
+    by_path["descriptor"] = drive_descriptor(dev, peaks, rows["descriptor"])
 
-    # One row per kernel: the numbers of the newest path that runs it (the
-    # driver row runs all three), and under "paths" each path's numbers at
-    # its own shapes with its own launch count.
+    # One row per kernel: the numbers of the newest path that checks it, and
+    # under "paths" each path's numbers at its own shapes with its own launch
+    # count.
     kernels = []
-    for kname in ("cosine_argmax", "gn_moments_from_cache", "champions_from_planes"):
+    for kname in ("cosine_argmax", "gn_moments_from_cache", "champions_from_planes", "nn_argmin",
+                  "flash_attention"):
         per_path = {}
         for path, checked in rows.items():
             if kname in checked:

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from vfmreg_tpu_torch.ops.nn_kernel import nn_argmin
 from vfmreg_tpu_torch.ops.voxel import INVALID_HASH, int32_view, voxel_coords, voxel_hash
 
 # Linear-probe budget of the table: one packed row of 8 slots covers 7 probe
@@ -292,13 +293,15 @@ def nn_from_cache(
     query_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Closest cached champion per query: (neighbour[N,3], dist[N], found[N]),
-    dist = +inf where nothing was found (the reference's plain branch)."""
+    dist = +inf where nothing was found. The distance and arg-min run through
+    kernel B4 (`ops/nn_kernel.nn_argmin`), its plain version for CPU tensors."""
     n = queries.shape[0]
     if query_mask is None:
         query_mask = torch.ones(n, dtype=torch.bool, device=queries.device)
-    qx, qy, qz = queries[:, 0], queries[:, 1], queries[:, 2]
-    d2 = (cache.cx - qx[None, :]) ** 2 + (cache.cy - qy[None, :]) ** 2 + (cache.cz - qz[None, :]) ** 2
-    best_d2, ksel = _argmin_first(d2, dim=0)
+    best_d2, best_k = nn_argmin(cache.cx, cache.cy, cache.cz, queries.contiguous())
+    # A NaN query's index is 2^30, which selects nothing in the reference's
+    # one-hot sum; clamp it before the gather; `found` zeroes its row.
+    ksel = best_k.clamp(max=cache.cx.shape[0] - 1).to(torch.int64)[None, :]
     best_pt = torch.stack([_select(ksel, c, 0) for c in (cache.cx, cache.cy, cache.cz)], dim=1)
     found = torch.isfinite(best_d2) & query_mask
     best_pt = torch.where(found[:, None], best_pt, 0.0)

@@ -1,4 +1,4 @@
-"""A seeded synthetic scene in the evaluation driver's layout.
+"""Seeded synthetic inputs: the evaluation driver's scene and a camera rig.
 
 A numpy copy of `bench.py:_make_synthetic_scene` (`:156-201`), the scene of
 the reference's driver benchmark, with the same seed semantics: one world map
@@ -7,10 +7,15 @@ sampling a 30 m-radius region of a ground-dominated world (70 % ground
 returns), with the stored GT poses carrying a release GT's 0.2-0.5 m /
 0.5-2 deg noise. It also returns each scan's true pose (a translation to its
 region's centre), which the copy in `bench.py` drops.
+
+`SyntheticCameraRig` and `make_rig_cloud` feed the descriptor pass
+(`pipeline/prepare_scenes.create_descriptors`): five seeded camera images per
+cloud and their projections, in place of a dataset sequence.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Dict, Tuple
 
 import numpy as np
@@ -57,3 +62,89 @@ def make_synthetic_scene(
         true_poses.append(T)
     scene = {"scene_poses": scene_poses, "scene_point_clouds": scene_clouds}
     return scene, local_map, np.stack(true_poses)
+
+
+class SyntheticCameraRig:
+    """A seeded surround-view camera rig for the descriptor pass.
+
+    Five pinhole cameras at 72-degree steps around the vehicle, each with a
+    90-degree horizontal field of view, so neighbouring cameras overlap by
+    18 degrees (a point seen by two cameras takes the first one's
+    descriptor). It offers what `create_descriptors` reads of a dataset
+    sequence: `read_images(filenames=...)`, one image per camera in camera
+    order, and `project_pcl_to_image(pcl_h, image, camera)` with the
+    RobotCar loader's semantics (`vfmreg_tpu/data/oxford_robotcar.py`):
+    depth strictly above 0, u = f x / z + c, and pixels at or beyond the
+    width or height cut. Images are uint8 noise made from the seed and the
+    file name, with the bottom rows black (the vehicle's own hood), so that
+    the empty-pixel rule runs. Numpy only, so both packages can use it.
+    """
+
+    cameras = ("cam0", "cam1", "cam2", "cam3", "cam4")
+    height, width = 1232, 1616  # RobotCar's image size
+    hfov_deg = 90.0
+    hood_rows = 185  # the bottom 15 % of the image
+
+    def __init__(self, seed: int = 0) -> None:
+        self.seed = seed
+        self.focal = (self.width / 2.0) / np.tan(np.deg2rad(self.hfov_deg) / 2.0)
+        self.principal_point = (self.width / 2.0, self.height / 2.0)
+        self.extrinsics = {}  # LiDAR frame (x forward, y left, z up) -> camera (x right, y down, z forward)
+        for i, cam in enumerate(self.cameras):
+            yaw = 2.0 * np.pi * i / len(self.cameras)
+            fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+            R = np.stack([np.array([np.sin(yaw), -np.cos(yaw), 0.0]), np.array([0.0, 0.0, -1.0]), fwd])
+            E = np.eye(4)
+            E[:3, :3] = R
+            E[:3, 3] = -R @ (0.3 * fwd)
+            self.extrinsics[cam] = E
+
+    def read_images(self, filenames) -> Dict[str, np.ndarray]:
+        """{camera: [height, width, 3] uint8}, the i-th file for the i-th camera."""
+        if len(filenames) != len(self.cameras):
+            raise ValueError(f"{len(filenames)} files for {len(self.cameras)} cameras")
+        images = {}
+        for cam, name in zip(self.cameras, filenames):
+            rng = np.random.default_rng([self.seed, zlib.crc32(str(name).encode())])
+            img = rng.integers(0, 256, (self.height, self.width, 3), dtype=np.uint8)
+            img[self.height - self.hood_rows :] = 0
+            images[cam] = img
+        return images
+
+    def project_pcl_to_image(self, pcl, image, camera: str):
+        """Homogeneous LiDAR points [4, N] -> (u, v, indices) of the points
+        that land in `image`."""
+        pc = self.extrinsics[camera] @ pcl
+        in_front = np.flatnonzero(pc[2, :] > 0)
+        p = pc[:, in_front]
+        u = self.focal * p[0, :] / p[2, :] + self.principal_point[0]
+        v = self.focal * p[1, :] / p[2, :] + self.principal_point[1]
+        outlier = (u < 0) | (u >= image.shape[1]) | (v < 0) | (v >= image.shape[0])
+        return u[~outlier].astype(int), v[~outlier].astype(int), in_front[~outlier]
+
+    def coverage(self, pcl: np.ndarray, images: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+        """(seen [N] int, first_empty [N] bool): how many cameras see each
+        point of `pcl` [N, 3], and whether the first of them sees it on an
+        empty pixel. The points that get a descriptor are seen > 0 and not
+        first_empty."""
+        pcl_h = np.insert(pcl, 3, values=1, axis=1).T
+        seen = np.zeros(pcl.shape[0], dtype=np.int64)
+        first_empty = np.zeros(pcl.shape[0], dtype=bool)
+        for cam, img in images.items():
+            u, v, idx = self.project_pcl_to_image(pcl_h, img, cam)
+            empty = np.all(img[v, u] == 0, axis=-1)
+            first_empty[idx[(seen[idx] == 0) & empty]] = True
+            seen[idx] += 1
+        return seen, first_empty
+
+
+def make_rig_cloud(n: int, seed: int = 0) -> np.ndarray:
+    """[n, 3] f32 LiDAR points around the rig: 60 % ground returns 1.7 m
+    below the sensor within 1-40 m, the rest structure up to 6 m above it
+    within 3-40 m. Some fall under the hood, some above every camera's view."""
+    rng = np.random.RandomState(seed)
+    n_ground = int(n * 0.6)
+    r = np.r_[rng.uniform(1.0, 40.0, n_ground), rng.uniform(3.0, 40.0, n - n_ground)]
+    yaw = rng.uniform(0.0, 2.0 * np.pi, n)
+    z = np.r_[-1.7 + rng.normal(0.0, 0.03, n_ground), rng.uniform(-1.7, 6.0, n - n_ground)]
+    return np.c_[r * np.cos(yaw), r * np.sin(yaw), z].astype(np.float32)

@@ -1,18 +1,22 @@
 """Where a path of the port spends its time on the card.
 
-    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver]
+    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|descriptor]
 
-Builds the same full-width scene as `chip_smoke.py` for the path (B = 8
-scans x 16,384 points, 524,288-point map, 384-d descriptors, seed 0): the
-scan-to-map slice, or the evaluation driver's method row
+Builds the same full-width inputs as `chip_smoke.py` for the path, seed 0:
+the scan-to-map slice or the evaluation driver's method row
 (`pipeline.registration_node.precompute_scene_batched` on
-`pipeline.synthetic`'s scene). It warms up once, then prints JSON lines:
+`pipeline.synthetic`'s scene), each B = 8 scans x 16,384 points against a
+524,288-point map with 384-d descriptors; or the descriptor pass
+(`pipeline.prepare_scenes.create_descriptors` at ViT-S/14 with random
+seeded weights, 8 clouds x 16,384 points, 40 rig images of 1232 x 1616).
+It warms up once, then prints JSON lines:
 
 * `stages`: host-clock seconds of each stage with a synchronize after it,
   summed over `--reps` runs (slice: grid build, 5 m voxelize, matching, each
-  lane's VFM-ICP; driver: the row's own stage clock), and for the driver
-  the GN iterations of each ICP row, so that seconds per GN iteration
-  follow;
+  lane's VFM-ICP; driver: the row's own stage clock, with the GN iterations
+  of each ICP row, so that seconds per GN iteration follow; descriptor: the
+  whole pass, then its images and its ViT features timed apart, and the
+  rest, projection, sampling and dedupe, as the difference);
 * `profile`: one call without the profiler, timed on the host clock
   (`wall_s`), then one call under `torch.profiler`: its device-busy seconds
   (the sum of device self time, which on one stream does not overlap), the
@@ -31,10 +35,13 @@ import time
 import torch
 from torch.autograd import DeviceType
 
+from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator
+from vfmreg_tpu_torch.models.vit import PRESETS
 from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
 from vfmreg_tpu_torch.ops.matching import get_vfm_correspondences_batched
 from vfmreg_tpu_torch.pipeline import registration_node as rn
-from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene
+from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
+from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud, make_synthetic_scene
 from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
 from vfmreg_tpu_torch.scan_to_map import (
     KERNEL,
@@ -81,17 +88,40 @@ def _driver(reps, dev):
     return run
 
 
+def _descriptor(reps, dev):
+    """The descriptor pass's stages over `reps` runs; returns one pass."""
+    gen = ImageFeatureGenerator("dinov2", config=PRESETS["dinov2_vits14"], seed=0, device=dev)
+    rig = SyntheticCameraRig(seed=0)
+    clouds = [make_rig_cloud(16384, seed=i) for i in range(8)]
+    files = [[f"cloud{i}/{cam}.png" for cam in rig.cameras] for i in range(8)]
+
+    def run():
+        return [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
+
+    run()  # warm-up
+    acc = {}
+    for _ in range(reps):
+        _timed(acc, "pass", run)
+        images = _timed(acc, "read_images", lambda: [rig.read_images(f) for f in files])
+        _timed(acc, "vit_features", lambda: [gen.get_image_features(im)
+                                             for ims in images for im in ims.values()])
+    acc["projection_sampling_dedupe"] = acc["pass"] - acc["read_images"] - acc["vit_features"]
+    print(json.dumps({"stages": acc, "images": 8 * len(rig.cameras) * reps, "reps": reps,
+                      "device": torch.cuda.get_device_name(0)}))
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=["slice", "driver"], default="slice")
+    ap.add_argument("--path", choices=["slice", "driver", "descriptor"], default="slice")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
     full_precision()
-    if args.path == "driver":
-        _profile(_driver(args.reps, dev), args.top)
+    if args.path in ("driver", "descriptor"):
+        _profile((_driver if args.path == "driver" else _descriptor)(args.reps, dev), args.top)
         return
     scene = shared_map_batch(8, 524288, 16384, 384, seed=0)
     mp, mf, sp, sf = (torch.from_numpy(a).to(dev) for a in scene[:4])
