@@ -7,7 +7,10 @@ Needs one CUDA card and `nvcc`; takes no arguments. It builds the port's five
 CUDA kernels from `vfmreg_tpu_torch/csrc/`, holds each against its plain
 PyTorch version at the shapes each path gives it (B3 also against
 `build_nn_cache`, B4 with a NaN query and an empty neighbourhood added, both
-bit for bit), and drives three paths. The first two run B1-B3:
+bit for bit; B1 also at its contract's edges: exact duplicate rows across
+lanes, warps, tiles and splits, an all-masked database, N, M and D off the
+tile sizes, each index equal to the plain version's), and drives three
+paths. The first two run B1-B3:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -36,9 +39,13 @@ the geometric ICP, B3 once per champion rebuild, B5 12 times per image. No
 path launches B4 (the ICP takes the fused B2); it is checked at the
 slice's and the driver's champion caches.
 
-It prints one JSON line per phase (device, build, data, warmup, kernel_check
-for each kernel on the slice, slice, driver_data, kernel_check for each
-kernel on the driver row, driver, kernel_check for B5, descriptor), then
+B1 and B5 run 3xTF32 on the tensor cores, so their bound is three TF32
+products per f32 product at the TF32 tensor-core rate; B2-B4 keep the f32
+CUDA-core rate. It prints one JSON line per phase (device, build, data,
+warmup, kernel_check for each kernel on the slice, slice, driver_data,
+kernel_check for each kernel on the driver row, driver, kernel_check for
+B5 at the pass's own q, k, v, at [2, 200, 4, 32] and at T = 320,
+descriptor), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
 under "paths"), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises and the script
@@ -73,9 +80,11 @@ SIM_ATOL, GAP, MOMENT_RTOL = 1e-5, 1e-5, 1e-4
 ATTN_ATOL, DESC_COS = 2e-5, 0.9999
 # Descriptor pass: ViT-S/14 (vit.py PRESETS["dinov2_vits14"]), 12 blocks.
 VIT_PRESET, VIT_LAYERS = "dinov2_vits14", 12
-# Published peaks of an H100 SXM (NVIDIA data sheet, dense, at 700 W): HBM3
-# rate and f32 CUDA-core rate. The PCIe card is slower.
-PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12)}
+# Published peaks of an H100 (NVIDIA data sheet, dense, SXM at 700 W): HBM
+# rate, f32 CUDA-core rate and TF32 tensor-core rate. The PCIe card is
+# slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
+# f32 product), so their operation bound is 3 x flops at the TF32 rate.
+PEAKS = {"SXM": (3.35e12, 67e12, 495e12), "PCIe": (2.0e12, 51e12, 378e12)}
 # The numbers of a kernel row that are kept for each path that runs it.
 PATH_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -108,6 +117,24 @@ def cuda_time_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def cuda_graph_ms(fn, launches=100):
+    """Mean device milliseconds per call with the host's launch cost taken
+    out: `launches` calls captured in one CUDA graph, replayed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_time_ms(graph.replay, reps=10, warmup=2) / launches
+
+
 def top2_gap(q, db, mask, chunk=8192):
     """Best minus second-best masked similarity per query (plain, chunked)."""
     import torch
@@ -120,22 +147,92 @@ def top2_gap(q, db, mask, chunk=8192):
     return top[:, 0] - top[:, 1]
 
 
+def _bound(nbytes, flops, peaks):
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def _bound_3xtf32(nbytes, flops, peaks):
+    """The bound of a kernel that runs its `flops` as three TF32 products
+    each on the tensor cores."""
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, 3 * flops / peaks[2] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations (3xTF32)"}
+
+
+def cosine_probes(dev):
+    """Kernel B1 at the contract's edges, against its plain version and the
+    index the contract names, on 131 queries (128 + 3) against 1,000 rows
+    (7 tiles of 128 + 104): groups of exact duplicate rows placed in one
+    thread's column pair, in neighbouring lanes, fragments and warps of one
+    tile, and in later tiles (each tile is its own split here), where the
+    lowest unmasked index must win; an all-masked database, which must give
+    (-1e30, 0); and D = 30, which takes the kernel's 4-byte copies."""
+    import torch
+
+    from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax, cosine_argmax_plain
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=g, dtype=torch.float64)
+        return (x / x.norm(dim=-1, keepdim=True)).float().to(dev)
+
+    n, m = 131, 1000
+    db, q = unit(m, DIM), unit(n, DIM)
+    mask = torch.ones(m, dtype=torch.bool, device=dev)
+    groups = [[8, 9, 10, 16, 40, 136, 999], [391, 300, 263, 262], [500, 501, 620]]
+    mask[500] = False  # the group's lowest row is masked: 501 must win
+    expect = torch.zeros(n, dtype=torch.int32, device=dev)
+    tied = torch.zeros(n, dtype=torch.bool, device=dev)
+    for gi, rows in enumerate(groups):
+        db[rows] = db[rows[0]].clone()
+        for j in range(3):  # three queries per group, at both ends of the batch
+            qi = 3 * gi + j if j < 2 else n - 1 - gi
+            q[qi] = db[rows[0]]
+            expect[qi] = min(r for r in rows if bool(mask[r]))
+            tied[qi] = True
+    out = {}
+
+    def compare(name, q, db, mask, want_idx=None, want_sim=None):
+        sim_k, idx_k = cosine_argmax(q, db, mask)
+        sim_p, idx_p = cosine_argmax_plain(q, db, mask)
+        decisive = top2_gap(q, db, mask) > GAP  # none where every row is masked
+        err = float((sim_k - sim_p).abs().max())
+        ok = err <= SIM_ATOL and torch.equal(idx_k[decisive], idx_p[decisive])
+        if want_idx is not None:
+            sel = want_idx[1]
+            ok = ok and torch.equal(idx_k[sel], want_idx[0][sel]) and torch.equal(idx_k[sel], idx_p[sel])
+        if want_sim is not None:
+            ok = ok and torch.equal(sim_k, want_sim) and torch.equal(sim_k, sim_p) and torch.equal(idx_k, idx_p)
+        out[name] = {"ok": bool(ok), "max_abs_err": err, "decisive": int(decisive.sum()), "queries": q.shape[0]}
+
+    compare("duplicates", q, db, mask, want_idx=(expect, tied))
+    compare("all_masked", q, db, torch.zeros_like(mask),
+            want_idx=(torch.zeros_like(expect), torch.ones_like(tied)),
+            want_sim=torch.full((n,), -1e30, device=dev))
+    compare("d30", unit(n, 30), unit(m, 30), mask)
+    return out
+
+
 def check_cosine(path, qn, dbn, valid, live, peaks):
     """Kernel B1 against its plain version on the queries [N, D] that `path`
     hands it; `live` [N] marks the rows that are real queries (the rest are
-    the batch's padding), of which most must have a decisive best match."""
+    the batch's padding), of which most must have a decisive best match;
+    then at the contract's edges (`cosine_probes`)."""
     import torch
 
     from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax, cosine_argmax_plain
 
     t0 = time.perf_counter()
+    probes = cosine_probes(qn.device)
     sim_k, idx_k = cosine_argmax(qn, dbn, valid)
     sim_p, idx_p = cosine_argmax_plain(qn, dbn, valid)
     decisive = top2_gap(qn, dbn, valid) > GAP
     torch.cuda.synchronize()
     err = float((sim_k - sim_p).abs().max())
     idx_bad = int(((idx_k != idx_p) & decisive).sum())
-    ok = err <= SIM_ATOL and idx_bad == 0 and bool(decisive[live].float().mean() > 0.5)
+    ok = (err <= SIM_ATOL and idx_bad == 0 and bool(decisive[live].float().mean() > 0.5)
+          and all(p["ok"] for p in probes.values()))
 
     def library():
         sim = torch.mm(qn, dbn.T)
@@ -149,12 +246,10 @@ def check_cosine(path, qn, dbn, valid, live, peaks):
     m_valid = int(valid.sum())
     flops = 2.0 * n * m_valid * d
     nbytes = 4.0 * (n * d + m_valid * d) + dbn.shape[0] + 8.0 * n
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
     row = {
         "name": "cosine_argmax", "route": "cuda", "ok": ok, "source": "vfmreg_tpu_torch/csrc/cosine_argmax.cu",
         "replaces": "vfmreg_tpu/ops/cosine_kernel.py:56",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **_bound_3xtf32(nbytes, flops, peaks),
         "library_ms": library_ms,
     }
     row["shape"] = [n, dbn.shape[0], d]
@@ -162,9 +257,10 @@ def check_cosine(path, qn, dbn, valid, live, peaks):
           "m_valid": m_valid, "live_queries": int(live.sum()), "idx_disagree_decisive": idx_bad,
           "idx_disagree_within_gap": int(((idx_k != idx_p) & ~decisive).sum()),
           "decisive_live_queries": int(decisive[live].sum()), "tflops": flops / ms / 1e9,
-          "seconds": time.perf_counter() - t0, **row})
+          "probes": probes, "seconds": time.perf_counter() - t0, **row})
     if not ok:
-        raise RuntimeError(f"cosine_argmax disagrees with its plain version: err={err} idx_bad={idx_bad}")
+        raise RuntimeError(f"cosine_argmax disagrees with its plain version: err={err} idx_bad={idx_bad} "
+                           f"probes={probes}")
     return row
 
 
@@ -249,11 +345,6 @@ def check_champions(path, planes, src, mask, group, ref_cache, peaks):
     return row
 
 
-def _bound(nbytes, flops, peaks):
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations"}
-
-
 def check_nn_argmin(path, cache, source, peaks):
     """Kernel B4 against its plain version, bit for bit, on one champion
     cache of `path` with its lane's positions, plus one NaN query (column 0)
@@ -321,6 +412,11 @@ def check_flash(path, q, k, v, peaks):
     ms = cuda_time_ms(lambda: flash_attention(q, k, v), reps=200, warmup=10)
     plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v), reps=50, warmup=5)
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps=200, warmup=10)
+    # Back-to-back calls of a kernel this short time the host's launch cost
+    # as much as the card: the device's own time, from a CUDA graph, beside.
+    with torch.no_grad():
+        device_ms = cuda_graph_ms(lambda: flash_attention(q, k, v))
+        library_device_ms = cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     b, t, h, hd = q.shape
     flops = 4.0 * b * h * t * t * hd
     row = {
@@ -328,10 +424,11 @@ def check_flash(path, q, k, v, peaks):
         "source": "vfmreg_tpu_torch/csrc/flash_attention.cu",
         "replaces": "vfmreg_tpu/ops/flash_attention.py:56",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        **_bound(4 * 4.0 * b * t * h * hd, flops, peaks), "library_ms": library_ms,
+        **_bound_3xtf32(4 * 4.0 * b * t * h * hd, flops, peaks), "library_ms": library_ms,
     }
     row["shape"] = [b, t, h, hd]
     emit({"phase": "kernel_check", "path": path, "kernel": "flash_attention", "gflops": flops / ms / 1e6,
+          "device_ms": device_ms, "library_device_ms": library_device_ms,
           "seconds": time.perf_counter() - t0, **row})
     if not ok:
         raise RuntimeError(f"flash_attention disagrees with its plain version at {row['shape']}: err={err}")
@@ -368,6 +465,9 @@ def drive_descriptor(dev, peaks, rows):
     rows["flash_attention"] = check_flash("descriptor", q, k, v, peaks)
     g = torch.Generator(device="cpu").manual_seed(SEED)
     check_flash("unit_normal", *(torch.randn((2, 200, 4, 32), generator=g).to(dev) for _ in range(3)), peaks)
+    # T a multiple of the kernel's 32-key tile and 16-query tile: no padding key.
+    check_flash("key_tile_multiple", *(torch.randn((1, 320, 6, 64), generator=g).to(dev) for _ in range(3)),
+                peaks)
     del q, k, v, batch
 
     def run(generator):
@@ -541,7 +641,7 @@ def main() -> int:
     peaks = PEAKS["PCIe"] if "PCIe" in name else PEAKS["SXM"]
     emit({"phase": "device", "nvidia_smi": smi, "name": name, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "peak_bytes_per_s": peaks[0], "peak_f32_flops": peaks[1]})
+          "peak_bytes_per_s": peaks[0], "peak_f32_flops": peaks[1], "peak_tf32_flops": peaks[2]})
 
     t0 = time.perf_counter()
     _build.build(["cosine_argmax", "gn_moments", "champions_from_planes", "flash_attention", "nn_argmin"])

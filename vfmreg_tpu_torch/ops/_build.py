@@ -37,6 +37,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, ctypes._CFuncPtr] = {}
 # nvcc's -Xptxas -v report (registers, spills, shared memory) per source.
 BUILD_LOG: Dict[str, str] = {}
 
@@ -96,10 +97,14 @@ def library(name: str) -> ctypes.CDLL:
 def launcher(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """`symbol` of `csrc/<name>.cu`'s library, typed: pointers and the stream
     as c_void_p (a bare Python int would be cut to 32 bits), returning the
-    cudaError_t as c_int."""
-    fn = getattr(library(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    cudaError_t as c_int. Typed once and kept: the wrappers call this on
+    every launch, where its host time adds to the kernel's."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
     return fn
 
 

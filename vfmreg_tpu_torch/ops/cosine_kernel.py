@@ -1,9 +1,10 @@
 """Kernel B1: masked cosine arg-max without the [N, M] similarity matrix.
 
 Counterpart of `vfmreg_tpu/ops/cosine_kernel.py:cosine_argmax`. The CUDA
-kernel is `csrc/cosine_argmax.cu`; `cosine_argmax_plain` is the same function
-in plain PyTorch, streamed over M in chunks (the reference's
-`_chunked_argmax_ip`, under the kernel's masking contract). The wrapper runs
+kernel is `csrc/cosine_argmax.cu` (its products in 3xTF32 on the tensor
+cores); `cosine_argmax_plain` is the same function in plain PyTorch,
+streamed over M in chunks (the reference's `_chunked_argmax_ip`, under the
+kernel's masking contract). The wrapper runs
 the plain version for CPU tensors only; for CUDA tensors it launches the
 kernel or raises.
 
@@ -63,8 +64,9 @@ def _check(queries, database, db_mask):
 
 
 def _tiles_per_split(n: int, m_tiles: int, device: torch.device) -> int:
-    """Split M so that about eight blocks per SM are launched (the result
-    does not depend on the split)."""
+    """Split M so that about eight blocks per SM are launched: four waves of
+    the kernel's two resident blocks per SM, so the last wave's tail is
+    short (the result does not depend on the split)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-n // _BQ)
     splits = max(1, min(m_tiles, -(-8 * sms // q_tiles)))

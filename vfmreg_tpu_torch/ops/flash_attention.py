@@ -5,9 +5,9 @@ calls once per block (`models/vit.py`): q, k, v [B, T, H, hd] f32 ->
 [B, T, H, hd]. q is scaled by 1/sqrt(hd) in f32 before the product, key
 columns past T are masked to -1e30, and out = acc / max(l, 1e-30).
 
-The CUDA kernel is `csrc/flash_attention.cu`; `flash_attention_plain` is the
-einsum softmax of the reference's `reference_attention`, the function the
-kernel is held against. The wrapper runs the plain version for CPU tensors
+The CUDA kernel is `csrc/flash_attention.cu` (both products in 3xTF32 on
+the tensor cores); `flash_attention_plain` is the einsum softmax of the
+reference's `reference_attention`, the function the kernel is held against. The wrapper runs the plain version for CPU tensors
 only; for CUDA tensors it launches the kernel or raises.
 """
 
@@ -23,6 +23,8 @@ from vfmreg_tpu_torch.ops import _build
 
 NAME = "flash_attention"
 _HEAD_DIMS = (32, 64)  # the head widths csrc/flash_attention.cu is instantiated for
+# 1/sqrt(hd) rounded to f32, as the reference scales q.
+_SCALE = {hd: float(np.float32(1.0 / math.sqrt(hd))) for hd in _HEAD_DIMS}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -35,6 +37,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def _check(q, k, v):
+    # One pass over the common case first: the ViT calls this 12 times per
+    # image, and each check below costs host time that the card waits for.
+    if (q.ndim == 4 and q.dtype == k.dtype == v.dtype == torch.float32
+            and q.shape == k.shape == v.shape and q.shape[1] > 0
+            and q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and q.device == k.device == v.device):
+        return
     if q.ndim != 4:
         raise ValueError(f"{NAME}: q must be [B, T, H, hd], got {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -63,16 +72,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     b, t, h, hd = q.shape
     if hd not in _HEAD_DIMS:
         raise ValueError(f"{NAME}: head width {hd} is not one of {_HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{NAME}: {name} is not 16-byte aligned")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        raise ValueError(f"{NAME}: q, k and v must be 16-byte aligned")
 
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.launcher(NAME, "flash_attention_launch", [P] * 4 + [I] * 4 + [F, P])
     out = torch.empty_like(q)
-    scale = float(np.float32(1.0 / math.sqrt(hd)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h, hd, scale, stream)
+    err = fn(*ptrs, out.data_ptr(), b, t, h, hd, _SCALE[hd], stream)
     _build.LAUNCHES[NAME] += 1
     _build.check(err, NAME)
     return out
