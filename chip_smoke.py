@@ -9,8 +9,10 @@ PyTorch version at the shapes each path gives it (B3 also against
 `build_nn_cache`, B4 with a NaN query and an empty neighbourhood added, both
 bit for bit; B1 also at its contract's edges: exact duplicate rows across
 lanes, warps, tiles and splits, an all-masked database, N, M and D off the
-tile sizes, each index equal to the plain version's), and drives three
-paths. The first two run B1-B3:
+tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
+at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
+the kernel's own moments against the plain one on the card, and their
+one-lane entries), and drives three paths. The first two run B1-B3:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -21,7 +23,7 @@ paths. The first two run B1-B3:
   seed 0) through `vfmreg_tpu_torch.pipeline.registration_node
   .precompute_scene_batched`: GT ICP and the vfm RANSAC + refine ICP rows
   checked against the true poses on every lane, the vanilla ICP row
-  reported;
+  reported, and a second call bit-identical to the first;
 * descriptor: the DINOv2 descriptor pass at ViT-S/14 full width (384
   wide, 12 layers, 6 heads of 64) with random weights from a seeded
   generator (no checkpoint is in the repository), over 8 clouds of 16,384
@@ -34,10 +36,13 @@ paths. The first two run B1-B3:
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path was launched as often as
-the path's own counts say: B1 at least once, B2 once per GN iteration of
-the geometric ICP, B3 once per champion rebuild, B5 12 times per image. No
-path launches B4 (the ICP takes the fused B2); it is checked at the
-slice's and the driver's champion caches.
+the path's own counts say: B1 at least once, B2 once per step call of the
+ICP loops (each call steps every live lane of a row), B3 once per rebuild
+round, B5 12 times per image. Per ICP row it prints the loop's step calls,
+reads and rebuild rounds beside the lanes' iterations and rebuilds, and
+checks them against each other (`loop_check`). No path launches B4 (the ICP
+takes the fused B2); it is checked at the slice's and the driver's champion
+caches.
 
 B1 and B5 run 3xTF32 on the tensor cores, so their bound is three TF32
 products per f32 product at the TF32 tensor-core rate; B2-B4 keep the f32
@@ -74,6 +79,15 @@ RTE_GATE_M, RRE_GATE_DEG = 0.3, 1.5
 # pick either row). B2: each moment within MOMENT_RTOL of the sum of the
 # absolute values of its terms (the kernel sums in another order).
 SIM_ATOL, GAP, MOMENT_RTOL = 1e-5, 1e-5, 1e-4
+# B2's finishing stage fed the kernel's own moments is held bit for bit
+# against the plain version on the card (the same f32 operations in the same
+# order, sinf and cosf the same functions): dx, est, T and the lane state.
+# The moved source: bit for bit against the plain move in the kernel's order
+# of operations, and within GN_SRC_ULPS units in the last place of the
+# point's largest coordinate of `transform_points`, whose product fuses a
+# multiply and an add twice per coordinate where the kernel rounds each
+# (1 ulp measured at the slice, H100 80GB HBM3, 700 W).
+GN_SRC_ULPS = 2
 # B5: max abs error against the einsum softmax (tests/test_vit.py's bar).
 # Descriptor pass: cosine of every covered point's descriptor against the
 # run with plain attention.
@@ -294,7 +308,7 @@ def check_gn(path, cache, source, center, kernel, max_dist, peaks):
         "library_ms": None,
     }
     row["shape"] = [k, n]
-    emit({"phase": "kernel_check", "path": path, "kernel": "gn_moments_from_cache",
+    emit({"phase": "kernel_check", "path": path, "kernel": "gn_moments_from_cache", "entry": "one_lane",
           "kernel_width": kernel, "max_dist": max_dist,
           "max_rel_err_of_scale": float((diff / scale.clamp(min=1e-30)).max()),
           "accepted": float(m_p[0]), "seconds": time.perf_counter() - t0, **row})
@@ -336,12 +350,202 @@ def check_champions(path, planes, src, mask, group, ref_cache, peaks):
         "library_ms": None,
     }
     row["shape"] = [kg, n]
-    emit({"phase": "kernel_check", "path": path, "kernel": "champions_from_planes", "group": group, "equal_plain": equal_plain, "equal_build_nn_cache": equal_cache,
+    emit({"phase": "kernel_check", "path": path, "kernel": "champions_from_planes", "entry": "one_lane",
+          "group": group, "equal_plain": equal_plain, "equal_build_nn_cache": equal_cache,
           "alive_champions": alive, "gbytes_per_s": nbytes / ms / 1e6,
           "seconds": time.perf_counter() - t0, **row})
     if not ok:
         raise RuntimeError(f"champions_from_planes disagrees: plain {equal_plain}, "
                            f"build_nn_cache {equal_cache}, alive {alive}")
+    return row
+
+
+def loop_check(loop, iterations, rebuilds, steps_per_read, max_rounds):
+    """The accounting of one ICP row's lane-batched loop (`ICPLanes.loop`,
+    summed over the row's calls) against the lanes' own device counters:
+    the lanes the host flagged for a rebuild are the device's rebuild counts;
+    each round of `steps_per_read` step calls advances every unfinished
+    lane, so the rounds are at most `max_rounds` (a row's longest lane, or
+    the sum over one-lane calls); the loop
+    reads the device once per round and once per call (the poses), which is
+    at most ceil(step calls / steps per read) + rebuild rounds."""
+    rounds = loop["step_calls"] // steps_per_read
+    out = {
+        "step_calls": loop["step_calls"], "reads": loop["reads"], "rebuild_rounds": loop["rebuild_rounds"],
+        "gather_rounds": loop["gather_rounds"], "lane_rebuilds": loop["lane_rebuilds"],
+        "lane_gathers": loop["lane_gathers"], "iterations": list(iterations), "rebuilds": list(rebuilds),
+        "max_lane_iterations": max(iterations), "sum_lane_iterations": sum(iterations),
+    }
+    out["ok"] = (rounds * steps_per_read == loop["step_calls"]
+                 and loop["lane_rebuilds"] == sum(rebuilds)
+                 and rounds <= max_rounds
+                 and loop["reads"] <= -(-loop["step_calls"] // steps_per_read) + loop["rebuild_rounds"])
+    return out
+
+
+def lane_planes(grid, src, mask, group):
+    """Per-lane candidate planes [3, B, 27 * group, N] of one slab gather at
+    the lanes' positions src [B, N, 3], and each lane's `build_nn_cache`."""
+    import torch
+
+    from vfmreg_tpu_torch.ops.hash_grid import build_nn_cache, gather_candidate_slabs
+
+    planes, caches = [], []
+    for j in range(src.shape[0]):
+        cands = gather_candidate_slabs(grid, src[j], mask[j])
+        planes.append(torch.stack(cands.planes(group)))
+        caches.append(build_nn_cache(cands, src[j], mask[j]))
+        del cands
+    return torch.stack(planes, dim=1).contiguous(), caches
+
+
+def check_champions_lanes(path, planes, src, mask, group, caches, peaks):
+    """Lane-batched kernel B3 on every lane of `path`'s ICP row at once:
+    bit for bit against its plain version and against each lane's
+    `build_nn_cache`; an unflagged lane's planes untouched."""
+    import torch
+
+    from vfmreg_tpu_torch.ops import champion_kernel as ck
+    from vfmreg_tpu_torch.ops.gn_kernel import KEEP, REBUILT
+
+    t0 = time.perf_counter()
+    b, kg, n = planes[0].shape
+    dev = src.device
+    flags = torch.full((b,), REBUILT, dtype=torch.int32, device=dev)
+    args = (planes[0], planes[1], planes[2], src, mask, flags, group)
+    got, plain = ck.new_champion_buffer(b, n, dev), ck.new_champion_buffer(b, n, dev)
+    ck.champions_from_planes_lanes(*args, got)
+    ck.champions_from_planes_lanes_plain(*args, plain)
+    equal_plain = torch.equal(got, plain)
+    equal_cache = all(torch.equal(got[c, j], ref) for j, cache in enumerate(caches)
+                      for c, ref in enumerate((cache.cx, cache.cy, cache.cz)))
+    # One lane not flagged: its planes stay as they were.
+    keep = got.clone()
+    keep[:, b // 2, :27] = 7.0
+    before = keep[:, b // 2].clone()
+    flags1 = flags.clone()
+    flags1[b // 2] = KEEP
+    ck.champions_from_planes_lanes(*args[:5], flags1, group, keep)
+    untouched = torch.equal(keep[:, b // 2], before)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    alive = int((got[0, :, :27] < 1e19).sum())
+    ok = equal_plain and equal_cache and untouched and alive > 0
+    ms = cuda_time_ms(lambda: ck.champions_from_planes_lanes(*args, got), reps=100, warmup=5)
+    plain_ms = cuda_time_ms(lambda: ck.champions_from_planes_lanes_plain(*args, plain), reps=5)
+    with torch.no_grad():
+        device_ms = cuda_graph_ms(lambda: ck.champions_from_planes_lanes(*args, got), launches=50)
+    nbytes = b * (4.0 * (3 * kg * n + 3 * n + 3 * 27 * n) + n) + 4.0 * b
+    flops = b * 8.0 * kg * n
+    row = {
+        "name": "champions_from_planes", "route": "cuda", "ok": ok,
+        "source": "vfmreg_tpu_torch/csrc/champions_from_planes.cu",
+        "replaces": "vfmreg_tpu/ops/champion_kernel.py:81",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, flops, peaks),
+        "library_ms": None,
+    }
+    row["shape"] = [b, kg, n]
+    emit({"phase": "kernel_check", "path": path, "kernel": "champions_from_planes", "entry": "lanes",
+          "group": group, "equal_plain": equal_plain, "equal_build_nn_cache": equal_cache,
+          "unflagged_lane_untouched": untouched,
+          "alive_champions": alive, "device_ms": device_ms, "gbytes_per_s": nbytes / ms / 1e6,
+          "seconds": time.perf_counter() - t0, **row})
+    if not ok:
+        raise RuntimeError(f"champions_from_planes_lanes disagrees: plain {equal_plain}, build_nn_cache "
+                           f"{equal_cache}, untouched {untouched}, alive {alive}")
+    return row, got
+
+
+def check_gn_lanes(path, champs, src, mask, kernel, max_dist, peaks):
+    """Lane-batched kernel B2, one GN step of every lane of `path`'s ICP row
+    (champs [3, B, 32, N] from B3 at the lanes' positions src [B, N, 3],
+    each lane right after a rebuild): each lane's moments within
+    MOMENT_RTOL of the sum of the absolute values of its terms; the
+    finishing stage fed the kernel's own moments against
+    `gn_finish_lanes_plain` on the card: dx, est, T and the lane state bit
+    for bit; each lane's moved source bit for bit against the plain move in
+    the kernel's order and within GN_SRC_ULPS of `transform_points` by the
+    plain est. Timed with every lane kept live."""
+    import torch
+
+    from vfmreg_tpu_torch.geometry.se3 import transform_points
+    from vfmreg_tpu_torch.ops import gn_kernel as gk
+    from vfmreg_tpu_torch.registration.icp import ESTIMATION_THRESHOLD as THR
+    from vfmreg_tpu_torch.registration.icp import REFRESH_INTERVAL as R
+
+    t0 = time.perf_counter()
+    b, n = src.shape[:2]
+    k = champs.shape[2]
+    dev = src.device
+    center = (torch.where(mask[..., None], src, 0.0).sum(dim=1) / mask.sum(dim=1)[:, None]).contiguous()
+    r_max = torch.sqrt(torch.amax(torch.where(mask, ((src - center[:, None]) ** 2).sum(-1), 0.0), dim=1))
+    st0 = gk.new_gn_lanes(torch.eye(4).repeat(b, 1, 1), 0, 1000, r_max, 0.5, n)
+    st0.ints[:, gk.PHASE] = gk.STEP
+    st_k, st_p = st0.clone(), st0.clone()
+    src_k = src.clone()
+    step = (champs[0], champs[1], champs[2])
+    gk.gn_step_lanes(*step, src_k, center, kernel, max_dist, THR, R, st_k)
+    terms = [gk.gn_terms_plain(champs[0, j], champs[1, j], champs[2, j], src[j], center[j], kernel, max_dist)
+             for j in range(b)]
+    m_p = torch.stack([t.sum(dim=1) for t in terms])
+    scale = torch.stack([t.abs().sum(dim=1) for t in terms])
+    live = gk.lanes_live(st_p, THR, R)
+    gk.gn_finish_lanes_plain(st_k.moments.clone(), st_p, center, live, THR, R)
+    # The plain moves by the plain est: `transform_points`, and the kernel's
+    # order ((x R_i0 + y R_i1) + z R_i2) + t_i, one rounding per operation.
+    est = st_p.est
+    by_tp = torch.stack([transform_points(src[j], est[j]) if live[j] else src[j] for j in range(b)])
+    Rm, t = est[:, None, :3, :3], est[:, None, :3, 3]
+    x, y, z = src[..., 0:1], src[..., 1:2], src[..., 2:3]
+    by_order = torch.where(live[:, None, None], ((x * Rm[..., 0] + y * Rm[..., 1]) + z * Rm[..., 2]) + t, src)
+    torch.cuda.synchronize()
+    diff = (st_k.moments - m_p).abs()
+    moments_ok = bool(torch.all(diff <= MOMENT_RTOL * scale)) and bool((m_p[:, 0] > 0).all())
+    errs = {key: float((a - c).abs().max()) for key, a, c in (
+        ("dx", st_k.dx, st_p.dx), ("est", st_k.est, est), ("T", st_k.T, st_p.T),
+        ("src_order", src_k, by_order), ("src_transform_points", src_k, by_tp))}
+    f = torch.finfo(torch.float32)
+    ulp = (f.eps * by_tp.abs().amax(dim=-1, keepdim=True)).clamp(min=f.tiny)
+    src_ulps = float(((src_k - by_tp).abs() / ulp).max())
+    finish_equal = all(torch.equal(a, c) for a, c in (
+        (st_k.dx, st_p.dx), (st_k.est, est), (st_k.T, st_p.T), (st_k.floats, st_p.floats)))
+    flags_equal = torch.equal(st_k.ints, st_p.ints)
+    moved = bool(live.all()) and torch.equal(src_k, by_order) and src_ulps <= GN_SRC_ULPS
+    ok = moments_ok and finish_equal and flags_equal and moved
+
+    # Timing: every lane kept live (no budget, no slack, no refresh limit).
+    st_t = st0.clone()
+    st_t.ints[:, gk.MAX_IT] = 2**30
+    st_t.floats[:, gk.SLACK] = float("inf")
+    src_t = src.clone()
+    args = (*step, src_t, center, kernel, max_dist, 0.0, 2**30, st_t)
+    ms = cuda_time_ms(lambda: gk.gn_step_lanes(*args), reps=200, warmup=10)
+    with torch.no_grad():
+        device_ms = cuda_graph_ms(lambda: gk.gn_step_lanes(*args))
+    still_live = bool(gk.lanes_live(st_t, 0.0, 2**30).all())
+    src_p, st_pt = src.clone(), st_t.clone()
+    plain_ms = cuda_time_ms(lambda: gk.gn_step_lanes_plain(*step, src_p, center, kernel, max_dist, 0.0, 2**30,
+                                                           st_pt), reps=5)
+    nbytes = b * 4.0 * (3 * k * n + 6 * n + 3 + 16 + 16 + 17)
+    flops = b * (float(n) * (8 * k + 75) + 600)
+    row = {
+        "name": "gn_moments_from_cache", "route": "cuda", "ok": ok, "source": "vfmreg_tpu_torch/csrc/gn_moments.cu",
+        "replaces": "vfmreg_tpu/ops/gn_kernel.py:98",
+        "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, flops, peaks),
+        "library_ms": None,
+    }
+    row["shape"] = [b, k, n]
+    emit({"phase": "kernel_check", "path": path, "kernel": "gn_moments_from_cache", "entry": "gn_step_lanes",
+          "kernel_width": kernel, "max_dist": max_dist, "moments_ok": moments_ok,
+          "max_rel_err_of_scale": float((diff / scale.clamp(min=1e-30)).max()),
+          "max_abs_errs": errs, "src_ulps_from_transform_points": src_ulps, "finish_equal": finish_equal, "flags_equal": flags_equal, "moved_ok": moved,
+          "accepted": m_p[:, 0].tolist(), "phases_after_step": st_k.ints[:, gk.PHASE].tolist(),
+          "timed_lanes_stayed_live": still_live, "device_ms": device_ms,
+          "seconds": time.perf_counter() - t0, **row})
+    if not ok:
+        raise RuntimeError(f"gn_step_lanes disagrees: moments {moments_ok} ({diff.max().item()}), finish "
+                           f"{finish_equal}, errors {errs} ({src_ulps} ulp), flags {flags_equal}: {st_k.ints.tolist()} vs "
+                           f"{st_p.ints.tolist()}, moved {moved}")
     return row
 
 
@@ -526,11 +730,10 @@ def drive_driver(dev, peaks, rows):
 
     from vfmreg_tpu_torch.geometry.metrics import compute_errors
     from vfmreg_tpu_torch.ops import _build
-    from vfmreg_tpu_torch.ops.hash_grid import build_nn_cache, gather_candidate_slabs
     from vfmreg_tpu_torch.ops.voxel import bucket_size
     from vfmreg_tpu_torch.pipeline import registration_node as rn
     from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene
-    from vfmreg_tpu_torch.registration.icp import champion_group
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
     from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, VOXEL_SIZE
     from vfmreg_tpu_torch.ops.matching import l2_normalize
 
@@ -548,7 +751,7 @@ def drive_driver(dev, peaks, rows):
     # Kernel inputs at the row's shapes. B1: the 5 m queries of all B scans,
     # flattened as the row's matching hands them over (q5_budget rows per
     # scan, most of them padding), against the map grid's descriptors. B2
-    # and B3: one slab gather of scan 0 at the vanilla row's start (the
+    # and B3: one slab gather of every scan at the vanilla row's start (the
     # identity), at the row's ICP width W, with the vanilla row's kernel.
     grid = rn.build_map_grid(lm, VOXEL_SIZE, dev)
     p3, _, m3, counts3, _, q5f, q5m, _ = rn._preprocess_scans_device(
@@ -558,17 +761,16 @@ def drive_driver(dev, peaks, rows):
                                          grid.valid, q5m.reshape(-1), peaks)
     del qn, q5f
     w = min(bucket_size(int(counts3.max())), p3.shape[1])
-    src, mask = p3[0, :w].contiguous(), m3[0, :w].contiguous()
-    cands = gather_candidate_slabs(grid, src, mask)
-    cache = build_nn_cache(cands, src, mask)
-    group = champion_group(grid, cands)
-    rows["champions_from_planes"] = check_champions("driver", cands.planes(group), src, mask, group,
-                                                    cache, peaks)
-    center = src[mask].mean(dim=0).tolist()
-    rows["gn_moments_from_cache"] = check_gn("driver", cache, src, center, INITIAL_THRESHOLD / 7,
-                                             7 * INITIAL_THRESHOLD, peaks)
-    rows["nn_argmin"] = check_nn_argmin("driver", cache, src, peaks)
-    del grid, p3, m3, cands, cache
+    src, mask = p3[:, :w].contiguous(), m3[:, :w].contiguous()
+    group = champion_group(grid)
+    planes, caches = lane_planes(grid, src, mask, group)
+    rows["champions_from_planes"], champs = check_champions_lanes("driver", planes, src, mask, group, caches,
+                                                                  peaks)
+    del planes
+    rows["gn_moments_from_cache"] = check_gn_lanes("driver", champs, src, mask, INITIAL_THRESHOLD / 7,
+                                                   7 * INITIAL_THRESHOLD, peaks)
+    rows["nn_argmin"] = check_nn_argmin("driver", caches[0], src[0], peaks)
+    del grid, p3, m3, caches, champs
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -586,11 +788,21 @@ def drive_driver(dev, peaks, rows):
     lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for k in gated for rte, rre in errs[k])
     gn_iterations = sum(sum(v) for v in st["iterations"].values())
     rebuilds = sum(sum(v) for v in st["rebuilds"].values())
+    loops = {row: loop_check(st["loop"][row], st["iterations"][row], st["rebuilds"][row], GN_STEPS_PER_READ,
+                             max(st["iterations"][row])) for row in st["loop"]}
+    step_calls = sum(v["step_calls"] for v in loops.values())
+    rebuild_rounds = sum(v["rebuild_rounds"] for v in loops.values())
     launches_ok = (launches.get("cosine_argmax", 0) >= 1
-                   and launches.get("gn_moments_from_cache", 0) == gn_iterations
-                   and rebuilds > 0 and launches.get("champions_from_planes", 0) == rebuilds)
+                   and launches.get("gn_moments_from_cache", 0) == step_calls
+                   and rebuilds > 0 and launches.get("champions_from_planes", 0) == rebuild_rounds
+                   and all(v["ok"] for v in loops.values()))
     table = rn.recall_table(rn.method_errors(res))
-    emit({"phase": "driver", "ok": lanes_ok and launches_ok, "seconds": seconds,
+
+    # A second call: the same poses, iterations and rebuilds, bit for bit.
+    again = rn.precompute_scene_batched(scene, lm, device=dev)
+    repeat_ok = (all(np.array_equal(res[k], again[k]) for k in ("gt", "vfm_ransac_raw", "vfm_ransac_icp", "icp"))
+                 and all(st[k] == again["stats"][k] for k in ("iterations", "rebuilds", "settled", "loop")))
+    emit({"phase": "driver", "ok": lanes_ok and launches_ok and repeat_ok, "seconds": seconds,
           "reg_per_s": BATCH / seconds, "batch": BATCH, "map_points": N_MAP, "scan_points": N_SCAN,
           "dim": DIM, "stage_seconds": st["seconds"], "icp_width": st["icp_width"],
           "corr_width": st["corr_width"], "corr_counts": res["corr_counts"],
@@ -599,6 +811,8 @@ def drive_driver(dev, peaks, rows):
           "rre_deg": {k: [e[1] for e in v] for k, v in errs.items()},
           "iterations": st["iterations"], "settled": st["settled"], "rebuilds": st["rebuilds"],
           "gn_iterations": gn_iterations, "champion_rebuilds": rebuilds, "launches": launches,
+          "gn_steps_per_read": GN_STEPS_PER_READ, "icp_rows": loops,
+          "repeat_bit_identical": repeat_ok, "repeat_seconds": again["stats"]["seconds"],
           "recall_vs_gt_icp": {k: dict(zip([f"{t},{r}" for t, r in rn.THRESHOLDS], v))
                                for k, v in table.items()},
           "vanilla_recall_vs_true": float(np.mean([rte < RTE_GATE_M and rre < RRE_GATE_DEG
@@ -608,7 +822,9 @@ def drive_driver(dev, peaks, rows):
         raise RuntimeError(f"driver recall gate failed: {errs}")
     if not launches_ok:
         raise RuntimeError(f"the driver row did not go through every kernel as counted: {launches}, "
-                           f"GN iterations {gn_iterations}, champion rebuilds {rebuilds}")
+                           f"B2 step calls {step_calls}, B3 rebuild rounds {rebuild_rounds}, rows {loops}")
+    if not repeat_ok:
+        raise RuntimeError("a second driver call gave other poses, iterations or rebuilds")
     return launches
 
 
@@ -622,10 +838,10 @@ def main() -> int:
     try:
         from vfmreg_tpu_torch.geometry.metrics import compute_errors
         from vfmreg_tpu_torch.ops import _build
-        from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid, build_nn_cache, gather_candidate_slabs
+        from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
         from vfmreg_tpu_torch.ops.matching import l2_normalize
         from vfmreg_tpu_torch.pipeline import registration_node  # noqa: F401
-        from vfmreg_tpu_torch.registration.icp import champion_group
+        from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
         from vfmreg_tpu_torch.scan_to_map import (
             KERNEL, MAP_VOXEL_SIZE, MAX_CORRESPONDENCE_DISTANCE, scan_to_map, shared_map_batch, vfm_queries,
         )
@@ -676,17 +892,19 @@ def main() -> int:
     dbn = l2_normalize(grid.feats).contiguous()
     rows = {"slice": {"cosine_argmax": check_cosine("slice", qn, dbn, grid.valid, m5.reshape(-1), peaks)}}
     del qn, dbn
-    src = sp[0].contiguous()
-    cands = gather_candidate_slabs(grid, src, sm[0])
-    cache = build_nn_cache(cands, src, sm[0])
-    group = champion_group(grid, cands)
-    rows["slice"]["champions_from_planes"] = check_champions(
-        "slice", cands.planes(group), src, sm[0].contiguous(), group, cache, peaks)
-    center = src.mean(dim=0).tolist()
-    rows["slice"]["gn_moments_from_cache"] = check_gn(
-        "slice", cache, src, center, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
-    rows["slice"]["nn_argmin"] = check_nn_argmin("slice", cache, src, peaks)
-    del grid, cands, cache
+    # B2 and B3: scan 0 at its start, the one lane each VFM-ICP runs; the
+    # one-lane entries of both kernels on the same inputs.
+    src, m1 = sp[:1].contiguous(), sm[:1].contiguous()
+    group = champion_group(grid)
+    planes, caches = lane_planes(grid, src, m1, group)
+    rows["slice"]["champions_from_planes"], champs = check_champions_lanes(
+        "slice", planes, src, m1, group, caches, peaks)
+    check_champions("slice", tuple(planes[:, 0]), src[0], m1[0], group, caches[0], peaks)
+    rows["slice"]["gn_moments_from_cache"] = check_gn_lanes(
+        "slice", champs, src, m1, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
+    check_gn("slice", caches[0], src[0], src[0].mean(dim=0).tolist(), KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
+    rows["slice"]["nn_argmin"] = check_nn_argmin("slice", caches[0], src[0], peaks)
+    del grid, planes, caches, champs
     torch.cuda.empty_cache()
 
     # The main path, counted and timed end to end (grid build included).
@@ -696,25 +914,29 @@ def main() -> int:
     seconds = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     errs = [compute_errors(p.astype("float64"), t) for p, t in zip(res.poses, scene.true_poses)]
-    phase2 = int((res.iterations - res.vfm_iterations).sum())
+    phase2 = (res.iterations - res.vfm_iterations).tolist()
     rebuilds = int(res.rebuilds.sum())
     lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for rte, rre in errs)
+    # Each scan's VFM-ICP runs its own one-lane loop: the rounds are at most
+    # the sum of the scans' phase-2 iterations.
+    loop = loop_check(res.loop, phase2, res.rebuilds.tolist(), GN_STEPS_PER_READ, sum(phase2))
     launches_ok = (launches.get("cosine_argmax", 0) >= 1
-                   and launches.get("gn_moments_from_cache", 0) == phase2
-                   and rebuilds > 0 and launches.get("champions_from_planes", 0) == rebuilds)
+                   and launches.get("gn_moments_from_cache", 0) == loop["step_calls"]
+                   and rebuilds > 0 and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"]
+                   and loop["ok"])
     emit({"phase": "slice", "ok": lanes_ok and launches_ok, "seconds": seconds,
           "reg_per_s": BATCH / seconds, "batch": BATCH, "map_points": N_MAP, "scan_points": N_SCAN,
           "dim": DIM, "n_vfm": N_VFM, "max_iterations": MAX_ITERATIONS,
           "iterations": res.iterations.tolist(), "vfm_iterations": res.vfm_iterations.tolist(),
-          "phase2_iterations": phase2, "rebuilds": rebuilds,
-          "n_correspondences": res.n_correspondences.tolist(),
+          "phase2_iterations": phase2, "rebuilds": rebuilds, "gn_steps_per_read": GN_STEPS_PER_READ,
+          "icp_loop": loop, "n_correspondences": res.n_correspondences.tolist(),
           "rte_m": [e[0] for e in errs], "rre_deg": [e[1] for e in errs], "launches": launches,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
     if not lanes_ok:
         raise RuntimeError(f"recall gate failed: {errs}")
     if not launches_ok:
         raise RuntimeError(f"the main path did not go through every kernel: {launches}, "
-                           f"phase 2 = {phase2}, rebuilds = {rebuilds}")
+                           f"phase 2 = {phase2}, rebuilds = {rebuilds}, loop = {loop}")
     del mp, mf, sp, sf, res
     torch.cuda.empty_cache()
 

@@ -32,6 +32,7 @@ from vfmreg_tpu.ops import hash_grid as jhg  # noqa: E402
 from vfmreg_tpu.parallel import mesh as jmesh  # noqa: E402
 from vfmreg_tpu.registration import icp as jicp  # noqa: E402
 from vfmreg_tpu_torch.geometry.metrics import compute_errors  # noqa: E402
+from vfmreg_tpu_torch.ops import gn_kernel as tgn  # noqa: E402
 from vfmreg_tpu_torch.ops import hash_grid as thg  # noqa: E402
 from vfmreg_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from vfmreg_tpu_torch.registration import icp as ticp  # noqa: E402
@@ -98,28 +99,41 @@ def _port_lanes(fixture, **kwargs):
 
 
 def _slabs_rebuild(monkeypatch, check=False):
-    """Make the ICP loop's rebuilds `build_nn_cache` on the epoch's slab
-    gather; with `check`, keep kernel B3's result and assert it equal to
-    `build_nn_cache`'s instead. Returns a dict that counts the checks."""
-    seen = {"checked": 0}
-    gather, b3 = ticp.gather_candidate_slabs, ticp.champions_from_planes
+    """Make the ICP loop's rebuilds `build_nn_cache` on each lane's own epoch
+    slab gather; with `check`, keep kernel B3's result and assert it equal to
+    `build_nn_cache`'s on every rebuilt lane instead. The loop gathers the
+    slabs of the lanes flagged GATHERED, in ascending order, over their
+    concatenated queries, and rebuilds the flagged lanes in one call; each
+    lane's slice of its last gather is its epoch's candidates. Returns a
+    dict that counts the checked lanes."""
+    seen = {"checked": 0, "lane_cands": {}}
+    gather, b3 = ticp.gather_candidate_slabs, ticp.champions_from_planes_lanes
 
     def recording_gather(grid, queries, mask):
         seen["cands"] = gather(grid, queries, mask)
         return seen["cands"]
 
-    def rebuild(cxt, cyt, czt, queries, mask, group):
-        cache = thg.build_nn_cache(seen["cands"], queries, mask)
-        ref = (cache.cx, cache.cy, cache.cz)
-        if not check:
-            return ref
-        got = b3(cxt, cyt, czt, queries, mask, group)
-        assert all(torch.equal(a, b) for a, b in zip(got, ref))
-        seen["checked"] += 1
-        return got
+    def rebuild(cxt, cyt, czt, queries, mask, flags, group, out):
+        n = queries.shape[1]
+        flags = flags.tolist()
+        gathered = [j for j, f in enumerate(flags) if f == tgn.GATHERED]
+        for k, j in enumerate(gathered):
+            seen["lane_cands"][j] = thg.Candidates(seen["cands"].slabs[k * n:(k + 1) * n])
+        b3(cxt, cyt, czt, queries, mask, torch.tensor(flags, dtype=torch.int32), group, out)
+        for j, f in enumerate(flags):
+            if f == tgn.KEEP:
+                continue
+            cache = thg.build_nn_cache(seen["lane_cands"][j], queries[j], mask[j])
+            ref = (cache.cx, cache.cy, cache.cz)
+            if not check:
+                for c in range(3):
+                    out[c, j] = ref[c]
+                continue
+            assert all(torch.equal(out[c, j], ref[c]) for c in range(3))
+            seen["checked"] += 1
 
     monkeypatch.setattr(ticp, "gather_candidate_slabs", recording_gather)
-    monkeypatch.setattr(ticp, "champions_from_planes", rebuild)
+    monkeypatch.setattr(ticp, "champions_from_planes_lanes", rebuild)
     return seen
 
 

@@ -146,6 +146,14 @@ def inverse_se3(T: torch.Tensor) -> torch.Tensor:
     return T_inv
 
 
+def conjugate_translation(T: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """T(center) @ T @ T(-center) for one [4, 4] T, without building the
+    translations."""
+    out = T.clone()
+    out[:3, 3] = T[:3, 3] + center - T[:3, :3] @ center
+    return out
+
+
 def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Apply a homogeneous 4x4 transform to (..., N, 3) points.
 

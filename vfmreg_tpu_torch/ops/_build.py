@@ -108,6 +108,21 @@ def launcher(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
+def check_args(name: str, specs, device) -> None:
+    """Raise unless every (arg, tensor, shape, dtype) of `specs` has that
+    dtype and shape, is contiguous and lies on `device`: what a kernel
+    reading raw pointers needs."""
+    for arg, t, shape, dtype in specs:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
+
+
 def check(err: int, name: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch function."""
     if err != 0:

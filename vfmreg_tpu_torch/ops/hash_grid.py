@@ -246,8 +246,9 @@ def _argmin_first(metric: torch.Tensor, dim: int):
 
 def _select(ksel: torch.Tensor, arr: torch.Tensor, dim: int) -> torch.Tensor:
     """The champion's value (the reference selects it by one-hot sum; a gather
-    gives the same value)."""
-    return torch.gather(arr, dim, ksel).squeeze(dim)
+    gives the same value). A NaN query's index is 2^30, which selects
+    nothing there; it is clamped here, and the caller's alive mask drops it."""
+    return torch.gather(arr, dim, ksel.clamp(max=arr.shape[dim] - 1)).squeeze(dim)
 
 
 def build_nn_cache(
@@ -275,8 +276,9 @@ def build_nn_cache(
         return torch.cat([champ.T, pad], dim=0).contiguous()
 
     # Dead lanes carry the sentinel in their row-id lanes too; convert with
-    # the reference's saturating f32 -> int32 (valid ids are below 2^24).
-    rowf = _select(ksel, cands.rowids(), -1)
+    # the reference's saturating f32 -> int32 (valid ids are below 2^24). A
+    # NaN query's one-hot sum there is 0.
+    rowf = torch.where(ksel[..., 0] >= 2**30, 0.0, _select(ksel, cands.rowids(), -1))
     rows = torch.where(rowf >= 2.0**31, 2**31 - 1, rowf.clamp(max=2.0**30).to(torch.int32))
     ipad = torch.zeros((32 - 27, n), dtype=torch.int32, device=queries.device)
     return NNCache(

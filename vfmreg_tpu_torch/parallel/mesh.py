@@ -5,17 +5,18 @@ Counterpart of the single-device stages of `vfmreg_tpu/parallel/mesh.py`
 `batched_icp_two_phase`. The reference vmaps each stage over the B scans of
 a scene. Here RANSAC runs as one batched pass over all scans (and the snap
 filter, the reference's `batched_snap`, is `registration.ransac
-.snap_correspondences` itself, which takes the batch axis), and the ICP
-rows run their lanes one after
-another: each lane's GN loop decides on the host whether to go on, so a
-lane's result is the one the vmapped loop gives it, and no lane waits for
-another. The reference's lane compaction and filler lanes in the two-phase
-row exist for the vmapped loop only; the per-lane sequence is what is kept.
+.snap_correspondences` itself, which takes the batch axis), and each ICP row
+steps all its lanes together on the device
+(`registration.icp.register_frames_icp_stats`), each lane taking the
+sequence of steps the vmapped loop gives it. The reference's lane
+compaction and filler lanes in the two-phase row exist for its fixed-shape
+loop only: here the unsettled lanes resume as one smaller batch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import collections
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,16 +25,10 @@ from vfmreg_tpu_torch.ops.hash_grid import HashGrid
 from vfmreg_tpu_torch.registration.icp import (
     FAR_FIELD_PHASE1_ITERATIONS,
     MAX_NUM_ITERATIONS,
-    register_frame_icp_stats,
+    BatchedICP,
+    register_frames_icp_stats,
 )
 from vfmreg_tpu_torch.registration.ransac import ransac_batched
-
-
-class BatchedICP(NamedTuple):
-    poses: torch.Tensor  # [B, 4, 4] host f32
-    iterations: np.ndarray  # [B] GN iterations per lane
-    settled: np.ndarray  # [B] stopped on its own, not on the budget
-    rebuilds: np.ndarray  # [B] champion-cache rebuilds per lane
 
 
 def batched_ransac(
@@ -54,23 +49,10 @@ def batched_icp_stats(
     kernel: float, max_iterations: Optional[int] = None,
 ) -> BatchedICP:
     """`register_frame_icp_stats` for each of B lanes (points [B, N, 3],
-    guesses [B, 4, 4]) against one shared grid."""
+    guesses [B, 4, 4]) against one shared grid, all lanes in one loop."""
     if max_iterations is None:
         max_iterations = MAX_NUM_ITERATIONS
-    guesses = torch.as_tensor(guesses).to("cpu", torch.float32)
-    lanes = [
-        register_frame_icp_stats(
-            grid, points[j], mask[j], guesses[j], max_dist, kernel,
-            max_iterations=max_iterations,
-        )
-        for j in range(points.shape[0])
-    ]
-    return BatchedICP(
-        torch.stack([s.pose for s in lanes]),
-        np.array([s.iterations for s in lanes], dtype=np.int64),
-        np.array([s.settled for s in lanes], dtype=bool),
-        np.array([s.rebuilds for s in lanes], dtype=np.int64),
-    )
+    return register_frames_icp_stats(grid, points, mask, guesses, max_dist, kernel, max_iterations)
 
 
 def batched_icp_two_phase(
@@ -80,22 +62,29 @@ def batched_icp_two_phase(
     """The far-field row in two phases: every lane runs `phase1_iters` GN
     iterations; a lane that settled there is final, and every other lane
     resumes from its phase-1 pose (re-gathering and re-centring there) with
-    the rest of the MAX_NUM_ITERATIONS budget. Iterations and rebuilds are
-    the sums over both phases."""
+    the rest of the MAX_NUM_ITERATIONS budget, all of them in one batched
+    loop. Iterations, rebuilds and the loop counts are the sums over both
+    phases."""
     if phase1_iters is None:
         phase1_iters = FAR_FIELD_PHASE1_ITERATIONS
     first = batched_icp_stats(
         grid, points, mask, guesses, max_dist, kernel, phase1_iters
     )
+    resume = np.flatnonzero(~first.settled)
+    if resume.size == 0:
+        return first
+    rows = torch.from_numpy(resume)
+    dev_rows = rows.to(points.device)
+    second = register_frames_icp_stats(
+        grid, points[dev_rows], mask[dev_rows], first.poses[rows], max_dist, kernel,
+        max_iterations=MAX_NUM_ITERATIONS - phase1_iters,
+    )
     poses = first.poses.clone()
+    poses[rows] = second.poses
     its, settled, rebuilds = first.iterations.copy(), first.settled.copy(), first.rebuilds.copy()
-    for j in np.flatnonzero(~first.settled):
-        s = register_frame_icp_stats(
-            grid, points[j], mask[j], first.poses[j], max_dist, kernel,
-            max_iterations=MAX_NUM_ITERATIONS - phase1_iters,
-        )
-        poses[j] = s.pose
-        its[j] += s.iterations
-        settled[j] = s.settled
-        rebuilds[j] += s.rebuilds
-    return BatchedICP(poses, its, settled, rebuilds)
+    its[resume] += second.iterations
+    settled[resume] = second.settled
+    rebuilds[resume] += second.rebuilds
+    loop = collections.Counter(first.loop)
+    loop.update(second.loop)
+    return BatchedICP(poses, its, settled, rebuilds, loop)

@@ -21,16 +21,18 @@ Counterpart of the single-device, device-preprocessing, vfm-row branch of
    separate rows at (3 sigma, sigma / 3);
 7. the two-phase vanilla ICP row from the identity at (7 sigma, sigma / 7).
 
-Every ICP row runs kernel B3 per champion rebuild and kernel B2 per GN
-iteration.
+Every ICP row steps all its lanes together on the device
+(`registration.icp.geometric_icp_loop_lanes`): one kernel B2 call per GN
+step of the row, one kernel B3 launch per round of champion rebuilds.
 
 It reads from the device three times, as the reference does: the
 correspondence counts (which decide the retry and the ICP width), the RANSAC
 poses (for the f64 orthogonalization), and one final read; the re-match and
-retry paths add one read each. The ICP rows read once per GN iteration,
-because their loops decide on the host. Every stage ends with a synchronize
-on the card, so the stage times in `stats["seconds"]` are what each stage
-took.
+retry paths add one read each. The ICP rows read a small vector of lane
+state once per `GN_STEPS_PER_READ` GN steps, because their loops decide on
+the host where the lanes go between steps. Every stage ends with a
+synchronize on the card, so the stage times in `stats["seconds"]` are what
+each stage took.
 
 Run as a script to register a small synthetic scene and print the recall
 table:
@@ -166,7 +168,9 @@ def precompute_scene_batched(
     "vfm_ransac_ortho", "vfm_ransac_icp", "icp" ([B, 4, 4] f64),
     "corr_counts", "snap_counts", "map_size", "scan_sizes", "retried",
     "viz_corr" (None), and "stats": per-stage seconds and, per ICP row, GN
-    iterations, settled flags and champion rebuilds per lane."""
+    iterations, settled flags and champion rebuilds per lane, and the row
+    loop's counts (`registration.icp.ICPLanes.loop`: kernel B2 step calls,
+    device reads, kernel B3 launches, lanes rebuilt and gathered)."""
     full_precision()
     dev = resolve_device(device)
     sigma, voxel_size = INITIAL_THRESHOLD, VOXEL_SIZE
@@ -291,6 +295,7 @@ def precompute_scene_batched(
             "iterations": {k: v.iterations.tolist() for k, v in rows.items()},
             "settled": {k: v.settled.tolist() for k, v in rows.items()},
             "rebuilds": {k: v.rebuilds.tolist() for k, v in rows.items()},
+            "loop": {k: dict(v.loop) for k, v in rows.items()},
         },
     }
 

@@ -1,6 +1,7 @@
 """Where a path of the port spends its time on the card.
 
     python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|descriptor]
+        [--reps N] [--steps-per-read 1,4,16]
 
 Builds the same full-width inputs as `chip_smoke.py` for the path, seed 0:
 the scan-to-map slice or the evaluation driver's method row
@@ -14,7 +15,10 @@ It warms up once, then prints JSON lines:
 * `stages`: host-clock seconds of each stage with a synchronize after it,
   summed over `--reps` runs (slice: grid build, 5 m voxelize, matching, each
   lane's VFM-ICP; driver: the row's own stage clock, with the GN iterations
-  of each ICP row, so that seconds per GN iteration follow; descriptor: the
+  of each ICP row and, per ICP row, its loop's kernel B2 step calls, device
+  reads, kernel B3 launches and per-lane iterations and rebuilds; with
+  `--steps-per-read 1,4,16` one such line per value of
+  `registration.icp.GN_STEPS_PER_READ`, the values run in turns; descriptor: the
   whole pass, then its images and its ViT features timed apart, and the
   rest, projection, sampling and dedupe, as the difference);
 * `profile`: one call without the profiler, timed on the host clock
@@ -42,6 +46,7 @@ from vfmreg_tpu_torch.ops.matching import get_vfm_correspondences_batched
 from vfmreg_tpu_torch.pipeline import registration_node as rn
 from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
 from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud, make_synthetic_scene
+from vfmreg_tpu_torch.registration import icp
 from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
 from vfmreg_tpu_torch.scan_to_map import (
     KERNEL,
@@ -63,8 +68,9 @@ def _timed(acc, key, fn):
     return out
 
 
-def _driver(reps, dev):
-    """The driver row's stage clock over `reps` runs; returns one call."""
+def _driver(reps, dev, steps_per_read):
+    """The driver row's stage clock over `reps` runs for each GN steps-per-
+    read value, the values taken in turns; returns one call at the first."""
     scene, local_map, _ = make_synthetic_scene(8, 524288, 16384, 384, seed=0)
     raw, raw_mask = rn.stack_scans(scene["scene_point_clouds"], local_map.shape[1])
     scene["scene_point_clouds_device"] = (
@@ -72,19 +78,31 @@ def _driver(reps, dev):
     )
     lm = torch.from_numpy(local_map).to(dev)
 
-    def run():
-        return rn.precompute_scene_batched(scene, lm, device=dev)
+    def run(k=steps_per_read[0]):
+        kept, icp.GN_STEPS_PER_READ = icp.GN_STEPS_PER_READ, k
+        try:
+            return rn.precompute_scene_batched(scene, lm, device=dev)
+        finally:
+            icp.GN_STEPS_PER_READ = kept
 
     run()  # warm-up
-    acc, its = {}, {}
+    out = {k: {"stages": {}, "gn_iterations": {}} for k in steps_per_read}
     for _ in range(reps):
-        st = run()["stats"]
-        for k, v in st["seconds"].items():
-            acc[k] = acc.get(k, 0.0) + v
-        for k, v in st["iterations"].items():
-            its[k] = its.get(k, 0) + sum(v)
-    print(json.dumps({"stages": acc, "gn_iterations": its, "reps": reps,
-                      "device": torch.cuda.get_device_name(0)}))
+        for k in steps_per_read:
+            st = run(k)["stats"]
+            acc = out[k]
+            for key, v in st["seconds"].items():
+                acc["stages"][key] = acc["stages"].get(key, 0.0) + v
+            for key, v in st["iterations"].items():
+                acc["gn_iterations"][key] = acc["gn_iterations"].get(key, 0) + sum(v)
+            # Per ICP row of the last run: kernel B2 step calls, device reads,
+            # kernel B3 launches (rebuild rounds), per-lane iterations and rebuilds.
+            acc["icp_rows"] = {row: {**loop, "iterations": st["iterations"][row],
+                                     "rebuilds": st["rebuilds"][row]}
+                               for row, loop in st["loop"].items()}
+    for k in steps_per_read:
+        print(json.dumps({"gn_steps_per_read": k, **out[k], "reps": reps,
+                          "device": torch.cuda.get_device_name(0)}))
     return run
 
 
@@ -116,12 +134,20 @@ def main(argv=None):
     ap.add_argument("--path", choices=["slice", "driver", "descriptor"], default="slice")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--steps-per-read", default="",
+                    help="driver: comma-separated GN_STEPS_PER_READ values to time in turns "
+                         "(default: the module's; the profile runs at the first)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
     full_precision()
-    if args.path in ("driver", "descriptor"):
-        _profile((_driver if args.path == "driver" else _descriptor)(args.reps, dev), args.top)
+    if args.path == "driver":
+        steps = [int(k) for k in args.steps_per_read.split(",")] if args.steps_per_read else [
+            icp.GN_STEPS_PER_READ]
+        _profile(_driver(args.reps, dev, steps), args.top)
+        return
+    if args.path == "descriptor":
+        _profile(_descriptor(args.reps, dev), args.top)
         return
     scene = shared_map_batch(8, 524288, 16384, 384, seed=0)
     mp, mf, sp, sf = (torch.from_numpy(a).to(dev) for a in scene[:4])

@@ -1,38 +1,56 @@
-"""Point-to-point Gauss-Newton ICP against the voxel hash grid.
+"""Point-to-point Gauss-Newton ICP against the voxel hash grid, all lanes of a row in lockstep.
 
 Counterpart of the scan-to-map parts of `vfmreg_tpu/registration/icp.py`:
 `build_linear_system` (`:83`), the unrolled `_cholesky_solve6` (`:111`),
-`gn_step` (`:141`), `_conjugate_translation` (`:151`),
-`geometric_icp_loop` (`:159`) with the reference's "planes" champion
-rebuild on every path (kernel B3), and the entry point `register_frame_icp_stats` (`:478`, through
-`_register_frame_icp_state`, `:396`; the reference's `register_frame_icp`,
-`:443`, is its `.pose`).
+`gn_step` (`:141`), `geometric_icp_loop` (`:159`) with the reference's
+"planes" champion rebuild on every path (kernel B3), and the entry point
+`register_frame_icp_stats` (`:478`, through `_register_frame_icp_state`,
+`:396`; the reference's `register_frame_icp`, `:443`, is its `.pose`).
 
-Split between host and device: the point clouds, candidate slabs and
-champion caches live on the device; the 6-dof solve, the pose and the stop
-tests run on the host in float32. Every GN iteration needs one device-to-host
-read anyway (the loop decides on the host whether to go on), and the
-unrolled 6x6 Cholesky is ~100 scalar operations that would otherwise be as
-many kernel launches. The solve is the reference's f32 arithmetic in the
-reference's order, so the |dx| < 1e-4 tests see the same numbers.
+The reference runs the B lanes of a row under `vmap`: one device loop,
+masked carries, a converged lane idling bit-exactly while the others finish.
+`geometric_icp_loop_lanes` does the same on the card. The lanes' state
+(`ops/gn_kernel.GNLanes`: iteration, inner step, flags, motion bound, pose)
+lives on the device; one call of kernel B2 (`gn_step_lanes`) is one GN step
+of every live lane, solve and pose update included; one launch of kernel B3
+(`champions_from_planes_lanes`) rebuilds the champions of every lane that
+needs it, and `mark_rebuilt` marks those lanes in their state. The host decides only where the lanes go between steps: after
+`GN_STEPS_PER_READ` step calls it reads one small [B, 8] vector of lane
+state, re-gathers the slabs of the lanes whose motion bound ran out (one
+gather over their concatenated queries, the grid is shared), and flags the
+lanes whose champions need a rebuild. A lane takes the reference's sequence
+of steps whatever the others do, so each lane's result is that of its own
+run, and `geometric_icp_loop` is the B = 1 call.
 
-Per champion rebuild on the device: kernel B3 (`ops/champion_kernel.py`).
-Per GN iteration: kernel B2 (`ops/gn_kernel.py`) gives the 17 moments, `assemble_gn_system` the 6x6 system, and the source is moved by the
-step. The reference runs B lanes under `vmap` with masked carries; here each
-lane runs on its own with host-side stop tests, which gives each lane the
-result of the vmapped run.
+`gn_step` keeps the per-lane host solve for VFM-ICP's phase 1
+(`registration/vfm_icp.py`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import collections
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from vfmreg_tpu_torch.geometry.se3 import exp_se3, hat_so3, transform_points
-from vfmreg_tpu_torch.ops.champion_kernel import champions_from_planes
-from vfmreg_tpu_torch.ops.gn_kernel import assemble_gn_system, gn_moments_from_cache
+from vfmreg_tpu_torch.geometry.se3 import hat_so3, transform_points
+from vfmreg_tpu_torch.ops.champion_kernel import champions_from_planes_lanes, new_champion_buffer
+from vfmreg_tpu_torch.ops.gn_kernel import (
+    CONF,
+    DONE,
+    FINISHED,
+    GATHER,
+    GATHERED,
+    IT,
+    PHASE,
+    REBUILD,
+    REBUILDS,
+    REBUILT,
+    gn_step_lanes,
+    mark_rebuilt,
+    new_gn_lanes,
+)
 from vfmreg_tpu_torch.ops.hash_grid import HashGrid, gather_candidate_slabs
 
 MAX_NUM_ITERATIONS = 1000  # Registration.cpp:92
@@ -44,6 +62,11 @@ FAR_FIELD_PHASE1_ITERATIONS = 256
 # Champion caches are rebuilt from the epoch's gathered slabs at least every
 # REFRESH_INTERVAL GN iterations (see the reference for the rationale).
 REFRESH_INTERVAL = 16
+# GN step calls between two reads of the lane state: the reference's
+# `unroll` on the TPU (`vfmreg_tpu/registration/icp.py:249`). A lane that
+# needs a rebuild or a gather waits for the read; more steps per read mean
+# fewer reads and more idle step calls (PERF.md compares 1, 4 and 16).
+GN_STEPS_PER_READ = 4
 
 _f32 = np.float32
 _Z = np.float32(0.0)  # f32 start value of the unrolled sums
@@ -107,21 +130,134 @@ def gn_step(JTJ: torch.Tensor, JTr: torch.Tensor, n_corr: torch.Tensor) -> Tuple
     return np.zeros(6, dtype=np.float32), n
 
 
-def _conjugate_translation(T: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """T(center) @ T @ T(-center) without building the translations."""
-    out = T.clone()
-    out[:3, 3] = T[:3, 3] + center - T[:3, :3] @ center
-    return out
-
-
-def _norm(v: np.ndarray) -> np.float32:
-    return np.sqrt(np.sum(v * v, dtype=np.float32), dtype=np.float32)
-
-
-def champion_group(grid: HashGrid, cands) -> int:
+def champion_group(grid: HashGrid) -> int:
     """Kernel B3's candidate lanes per voxel: the per-voxel cap rounded up
-    to a multiple of 8, which trims the slab's sentinel lanes (20 -> 24 of 32)."""
-    return min(-(-grid.max_points_per_voxel // 8) * 8, 32 * cands.slabs.shape[2])
+    to a multiple of 8, which trims the slab's sentinel lanes (20 -> 24 of
+    32). A slab row holds 32 lanes per coordinate for every 32 of the cap,
+    so this never exceeds the slab."""
+    return -(-grid.max_points_per_voxel // 8) * 8
+
+
+def _gather_planes(grid: HashGrid, source: torch.Tensor, mask: torch.Tensor, lanes: np.ndarray,
+                   group: int, planes: torch.Tensor) -> None:
+    """One slab gather around the current queries of `lanes` (ascending),
+    transposed into those lanes' rows of `planes` [3, B, 27 * group, N]:
+    each lane gets its `Candidates.planes(group)`."""
+    b, n = source.shape[:2]
+    L = len(lanes)
+    idx = None if L == b else torch.from_numpy(lanes).to(source.device)
+    q, m = (source, mask) if idx is None else (source[idx], mask[idx])
+    cands = gather_candidate_slabs(grid, q.reshape(-1, 3), m.reshape(-1))
+    for c, a in enumerate(cands.coords()):  # [L * N, 27, S * 32]
+        a = a[:, :, :group].reshape(L, n, 27, group).permute(0, 2, 3, 1).reshape(L, 27 * group, n)
+        if idx is None:
+            planes[c].copy_(a)
+        else:
+            planes[c].index_copy_(0, idx, a)
+
+
+class ICPLanes(NamedTuple):
+    source: torch.Tensor  # [B, N, 3] device, current world-frame sources
+    T_icp: torch.Tensor  # [B, 4, 4] host f32, accumulated corrections
+    it: np.ndarray  # [B] GN iterations so far (including `it0`)
+    done: np.ndarray  # [B] stopped on an empty correspondence set
+    confirmed: np.ndarray  # [B] converged on a freshly rebuilt champion cache
+    rebuilds: np.ndarray  # [B] champion-cache rebuilds
+    # The host loop's own counts: step_calls (kernel B2 calls), reads (of
+    # the device), rebuild_rounds (kernel B3 launches), lane_rebuilds (lanes
+    # flagged for a rebuild), gather_rounds, lane_gathers.
+    loop: collections.Counter
+
+
+def geometric_icp_loop_lanes(
+    grid: HashGrid,
+    source0: torch.Tensor,
+    mask: torch.Tensor,
+    T_icp0: torch.Tensor,
+    center: torch.Tensor,
+    max_dist: float,
+    kernel: float,
+    max_iterations: int,
+    estimation_threshold: float,
+    it0: Union[int, Sequence[int]],
+    refresh_interval: int = REFRESH_INTERVAL,
+) -> ICPLanes:
+    """The reference's three nested loops with their three rules, for B
+    lanes at once (source0 [B, N, 3], mask [B, N], T_icp0 [B, 4, 4],
+    center [B, 3]; `it0` per lane or shared):
+
+    * one 27-voxel slab gather per motion epoch; the epoch ends once the
+      accumulated motion bound (|dt| + |omega| * r_max) reaches half a voxel;
+    * the champion cache is rebuilt from the epoch's slabs at least every
+      `refresh_interval` GN iterations;
+    * |dx| < threshold ends the loop only on the first iteration after a
+      rebuild (fresh-confirmed); a sub-threshold step on a stale cache
+      triggers a rebuild and a fresh check instead.
+
+    Each lane keeps them by its own state, as the vmapped loop's masked
+    carries do: each GN step leaves the lane's phase (step on, rebuild,
+    gather, finished), which the host reads every `GN_STEPS_PER_READ` step
+    calls. Each slab gather is transposed once into the lane's planes
+    buffer, and each rebuild gives `build_nn_cache`'s champions bit for bit
+    (the reference's rebuild_mode="planes"; its "slabs" mode is not ported,
+    and `build_nn_cache` stays as the reference B3 is held against)."""
+    dev = source0.device
+    b, n = source0.shape[:2]
+    f32 = torch.float32
+    source = source0.to(f32).contiguous().clone()  # moved in place
+    mask = mask.contiguous()
+    center = center.to(dev, f32).contiguous()
+    d2c = torch.sum(torch.square(source - center[:, None]), dim=-1)
+    r_max = torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0), dim=1))
+    slack = float(np.float32(0.5) * np.float32(grid.voxel_size))
+    st = new_gn_lanes(torch.as_tensor(T_icp0), it0, max_iterations, r_max, slack, n)
+    group = champion_group(grid)
+    planes = torch.empty((3, b, 27 * group, n), dtype=f32, device=dev)
+    champs = new_champion_buffer(b, n, dev)
+    flags = torch.zeros(b, dtype=torch.int32, device=dev)
+    flags_host = torch.zeros(b, dtype=torch.int32, pin_memory=dev.type == "cuda")
+
+    phase = np.where(np.broadcast_to(it0, (b,)) < max_iterations, GATHER, FINISHED)
+    loop = collections.Counter(step_calls=0, reads=0, rebuild_rounds=0, lane_rebuilds=0,
+                               gather_rounds=0, lane_gathers=0)
+    # Every round advances every unfinished lane by at least one step.
+    max_rounds = int(max_iterations - np.min(it0))
+    ints = None
+    while not (phase == FINISHED).all():
+        if loop["reads"] >= max_rounds:
+            raise RuntimeError(f"ICP lanes made no progress in {max_rounds} rounds: phases {phase.tolist()}")
+        gather = np.flatnonzero(phase == GATHER)
+        rebuild = np.flatnonzero((phase == GATHER) | (phase == REBUILD))
+        if gather.size:
+            _gather_planes(grid, source, mask, gather, group, planes)
+            loop["gather_rounds"] += 1
+            loop["lane_gathers"] += gather.size
+        if rebuild.size:
+            # The previous round's read has synchronised: the pinned buffer is free.
+            fh = flags_host.numpy()
+            fh[:] = 0
+            fh[rebuild] = REBUILT
+            fh[gather] = GATHERED
+            flags.copy_(flags_host, non_blocking=True)
+            champions_from_planes_lanes(planes[0], planes[1], planes[2], source, mask, flags, group,
+                                        champs)
+            mark_rebuilt(st, flags)
+            loop["rebuild_rounds"] += 1
+            loop["lane_rebuilds"] += rebuild.size
+        for _ in range(GN_STEPS_PER_READ):
+            gn_step_lanes(champs[0], champs[1], champs[2], source, center, kernel, max_dist,
+                          estimation_threshold, refresh_interval, st)
+        loop["step_calls"] += GN_STEPS_PER_READ
+        ints = st.ints.cpu().numpy()
+        loop["reads"] += 1
+        phase = ints[:, PHASE]
+    if ints is None:  # every lane started finished
+        ints = st.ints.cpu().numpy()
+        loop["reads"] += 1
+    T_icp = st.T.cpu()
+    loop["reads"] += 1
+    return ICPLanes(source, T_icp, ints[:, IT].astype(np.int64), ints[:, DONE] != 0,
+                    ints[:, CONF] != 0, ints[:, REBUILDS].astype(np.int64), loop)
 
 
 class ICPState(NamedTuple):
@@ -130,7 +266,8 @@ class ICPState(NamedTuple):
     it: int  # GN iterations so far (including `it0`)
     done: bool  # stopped on an empty correspondence set
     confirmed: bool  # converged on a freshly rebuilt champion cache
-    rebuilds: int  # champion-cache rebuilds (kernel B3 launches)
+    rebuilds: int  # champion-cache rebuilds
+    loop: Optional[collections.Counter] = None  # `ICPLanes.loop`
 
 
 def geometric_icp_loop(
@@ -146,59 +283,15 @@ def geometric_icp_loop(
     it0: int,
     refresh_interval: int = REFRESH_INTERVAL,
 ) -> ICPState:
-    """The reference's three nested loops with their three rules:
-
-    * one 27-voxel slab gather per motion epoch; the epoch ends once the
-      accumulated motion bound (|dt| + |omega| * r_max) reaches half a voxel;
-    * the champion cache is rebuilt from the epoch's slabs at least every
-      `refresh_interval` GN iterations;
-    * |dx| < threshold ends the loop only on the first iteration after a
-      rebuild (fresh-confirmed); a sub-threshold step on a stale cache
-      triggers a rebuild and a fresh check instead.
-
-    Each slab gather is transposed once (`Candidates.planes`) and each
-    rebuild is one launch of kernel B3, which gives `build_nn_cache`'s
-    champions bit for bit (the reference's rebuild_mode="planes"; its
-    "slabs" mode is not ported, and `build_nn_cache` stays as the
-    reference the kernel is held against).
-
-    `center` is a host f32 [3] tensor; `T_icp0` a host f32 [4, 4]."""
-    d2c = torch.sum(torch.square(source0 - center.to(source0.device)), dim=-1)
-    r_max = _f32(torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0))).item())
-    slack = _f32(0.5) * _f32(grid.voxel_size)
-    thr = _f32(estimation_threshold)
-    center_l = center.tolist()
-
-    source, T_icp, it = source0, T_icp0, int(it0)
-    dx_norm = _f32(np.inf)
-    done = confirmed = False
-    rebuilds = 0
-    while it < max_iterations and not done and not confirmed:
-        cands = gather_candidate_slabs(grid, source, mask)
-        group = champion_group(grid, cands)
-        planes = cands.planes(group)
-        moved_g = _f32(0.0)
-        while it < max_iterations and not done and not confirmed and moved_g < slack:
-            cx, cy, cz = champions_from_planes(*planes, source, mask, group)
-            rebuilds += 1
-            s = 0
-            while (
-                s < refresh_interval and it < max_iterations and not done
-                and not confirmed and moved_g < slack and (s == 0 or dx_norm >= thr)
-            ):
-                m = gn_moments_from_cache(cx, cy, cz, source, center_l, kernel, max_dist)
-                JTJ, JTr, n_corr = assemble_gn_system(m)
-                dx, n_corr = gn_step(JTJ, JTr, n_corr)
-                est = _conjugate_translation(exp_se3(torch.from_numpy(dx)), center)
-                source = transform_points(source, est)
-                T_icp = est @ T_icp
-                dx_norm = _norm(dx)
-                confirmed = s == 0 and dx_norm < thr
-                moved_g = moved_g + _norm(dx[:3]) + _norm(dx[3:]) * r_max
-                done = n_corr == 0
-                it += 1
-                s += 1
-    return ICPState(source, T_icp, it, done, confirmed, rebuilds)
+    """`geometric_icp_loop_lanes` for one lane: source0 [N, 3], mask [N],
+    T_icp0 a host f32 [4, 4], center an f32 [3]."""
+    r = geometric_icp_loop_lanes(
+        grid, source0[None], mask[None], torch.as_tensor(T_icp0)[None],
+        torch.as_tensor(center)[None], max_dist, kernel, max_iterations, estimation_threshold,
+        it0, refresh_interval,
+    )
+    return ICPState(r.source[0], r.T_icp[0], int(r.it[0]), bool(r.done[0]), bool(r.confirmed[0]),
+                    int(r.rebuilds[0]), r.loop)
 
 
 class ICPStats(NamedTuple):
@@ -206,6 +299,48 @@ class ICPStats(NamedTuple):
     iterations: int  # GN iterations
     settled: bool  # stopped on its own (confirmed or no correspondences), not on the budget
     rebuilds: int  # champion-cache rebuilds
+    loop: Optional[collections.Counter] = None  # `ICPLanes.loop`
+
+
+class BatchedICP(NamedTuple):
+    poses: torch.Tensor  # [B, 4, 4] host f32
+    iterations: np.ndarray  # [B] GN iterations per lane
+    settled: np.ndarray  # [B] stopped on its own, not on the budget
+    rebuilds: np.ndarray  # [B] champion-cache rebuilds per lane
+    loop: Optional[collections.Counter] = None  # `ICPLanes.loop`, summed over the calls
+
+
+def register_frames_icp_stats(
+    grid: HashGrid,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    initial_guesses,
+    max_correspondence_distance: float,
+    kernel: float,
+    max_iterations: int = MAX_NUM_ITERATIONS,
+) -> BatchedICP:
+    """KISS-ICP `RegisterFrame` for 3D points (`Registration.cpp:145-195`)
+    for B lanes at once (points [B, N, 3], mask [B, N], initial_guesses
+    [B, 4, 4]), with each lane's iteration count, whether it settled and its
+    champion rebuilds. Each lane's GN solve is centred on the mean of its
+    guess-transformed source; the centres and lever arms stay on the device.
+    A run resumed from a returned pose continues the same trajectory up to
+    that re-centring."""
+    points = points.to(torch.float32)
+    b = points.shape[0]
+    guesses = torch.as_tensor(initial_guesses).to("cpu", torch.float32)
+    on_dev = guesses.to(points.device)
+    # Lane by lane: a batched product rounds otherwise than the per-lane one.
+    source0 = torch.stack([transform_points(points[j], on_dev[j]) for j in range(b)])
+    denom = torch.clamp(mask.sum(dim=1), min=1)
+    center = torch.where(mask[..., None], source0, 0.0).sum(dim=1) / denom[:, None]
+    eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
+    r = geometric_icp_loop_lanes(
+        grid, source0, mask, eye, center, max_correspondence_distance, kernel, max_iterations,
+        ESTIMATION_THRESHOLD, it0=0,
+    )
+    poses = torch.stack([r.T_icp[j] @ guesses[j] for j in range(b)])
+    return BatchedICP(poses, r.it, r.done | r.confirmed, r.rebuilds, r.loop)
 
 
 def register_frame_icp_stats(
@@ -217,20 +352,9 @@ def register_frame_icp_stats(
     kernel: float,
     max_iterations: int = MAX_NUM_ITERATIONS,
 ) -> ICPStats:
-    """KISS-ICP `RegisterFrame` for 3D points (`Registration.cpp:145-195`)
-    from `initial_guess` [4, 4], with its iteration count, whether it settled
-    and its champion rebuilds. The GN solve is centred on the mean of the
-    guess-transformed source. A run resumed from the returned pose continues
-    the same trajectory up to that re-centring."""
-    points = points.to(torch.float32)
+    """`register_frames_icp_stats` for one lane: points [N, 3], mask [N],
+    initial_guess [4, 4]."""
     guess = torch.as_tensor(initial_guess).to("cpu", torch.float32)
-    source0 = transform_points(points, guess)
-    denom = torch.clamp(mask.sum(), min=1)
-    center = (torch.where(mask[:, None], source0, 0.0).sum(dim=0) / denom).cpu()
-    final = geometric_icp_loop(
-        grid, source0, mask, torch.eye(4, dtype=torch.float32), center,
-        max_correspondence_distance, kernel, max_iterations, ESTIMATION_THRESHOLD,
-        it0=0,
-    )
-    return ICPStats(final.T_icp @ guess, final.it, final.done or final.confirmed, final.rebuilds)
-
+    r = register_frames_icp_stats(grid, points[None], mask[None], guess[None],
+                                  max_correspondence_distance, kernel, max_iterations)
+    return ICPStats(r.poses[0], int(r.iterations[0]), bool(r.settled[0]), int(r.rebuilds[0]), r.loop)

@@ -13,18 +13,18 @@ Phase 2 continues with geometric ICP against the voxel grid
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from vfmreg_tpu_torch.geometry.se3 import exp_se3, inverse_se3, transform_points
+from vfmreg_tpu_torch.geometry.se3 import conjugate_translation, exp_se3, inverse_se3, transform_points
 from vfmreg_tpu_torch.ops.hash_grid import HashGrid
 from vfmreg_tpu_torch.ops.matching import VFMCorrespondences, masked_mad
 from vfmreg_tpu_torch.registration.icp import (
     ESTIMATION_THRESHOLD,
     MAX_NUM_ITERATIONS,
-    _conjugate_translation,
     build_linear_system,
     geometric_icp_loop,
     gn_step,
@@ -41,7 +41,8 @@ class VFMResult(NamedTuple):
     corr_mask: torch.Tensor  # [N_c] phase-1 survivors
     vfm_iterations: int  # phase-1 GN iterations
     iterations: int  # all GN iterations (phase 1 + phase 2)
-    rebuilds: int  # phase 2's champion-cache rebuilds (kernel B3 launches)
+    rebuilds: int  # phase 2's champion-cache rebuilds
+    loop: collections.Counter  # phase 2's loop counts (`registration.icp.ICPLanes.loop`)
 
 
 def _masked_mean(d: torch.Tensor, mask: torch.Tensor) -> np.float32:
@@ -82,7 +83,7 @@ def register_frame_vfm(
     while it < max_iterations and not done:
         JTJ, JTr, n_corr = build_linear_system(src_c, tgt_c, corr_mask, kernel, center_dev)
         dx, n_corr = gn_step(JTJ, JTr, n_corr)
-        est = _conjugate_translation(exp_se3(torch.from_numpy(dx)), center)
+        est = conjugate_translation(exp_se3(torch.from_numpy(dx)), center)
         source = transform_points(source, est)
         src_c = transform_points(src_c, est)
         T_icp = est @ T_icp
@@ -114,4 +115,5 @@ def register_frame_vfm(
         vfm_iterations=it,
         iterations=s2.it,
         rebuilds=s2.rebuilds,
+        loop=s2.loop,
     )

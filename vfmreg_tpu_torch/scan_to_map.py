@@ -4,8 +4,8 @@ Counterpart of `bench.py:_run_workload` (`:86-153`), staged the same way:
 build the voxel hash grid of the map once, voxelize each scan at 5 m and keep
 `n_vfm` queries, match the flattened batch against the map descriptors in one
 cosine arg-max (kernel B1), then register each scan with VFM-ICP (kernel B3
-in every champion rebuild and kernel B2 in every GN iteration of its
-geometric phase).
+in every champion rebuild and kernel B2 in every GN step of its geometric
+phase, which runs as a one-lane `registration.icp.geometric_icp_loop`).
 
 `shared_map_batch` is a copy of `bench.py:_shared_map_batch` (`:46-83`) with
 the same seed semantics, which also returns each scan's true pose.
@@ -18,6 +18,7 @@ Run as a script to register a small synthetic batch and print the errors:
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 from typing import NamedTuple, Optional
 
@@ -95,6 +96,9 @@ class ScanToMapResult(NamedTuple):
     iterations: np.ndarray  # [B] all GN iterations (phase 2 = the difference)
     n_correspondences: np.ndarray  # [B] accepted cosine correspondences
     rebuilds: np.ndarray  # [B] phase 2's champion-cache rebuilds
+    # Phase 2's loop counts summed over the scans
+    # (`registration.icp.ICPLanes.loop`: B2 step calls, reads, B3 launches).
+    loop: collections.Counter
 
 
 def scan_to_map(
@@ -129,6 +133,7 @@ def scan_to_map(
 
     eye = torch.eye(4, dtype=torch.float32)
     poses, it1, it, n_corr, rebuilds = [], [], [], [], []
+    loop = collections.Counter()
     for i in range(b):
         res = register_frame_vfm(
             grid, sp[i], sm[i], corrs.lane(i), eye,
@@ -139,8 +144,9 @@ def scan_to_map(
         it.append(res.iterations)
         n_corr.append(int(corrs.mask[i].sum()))
         rebuilds.append(res.rebuilds)
+        loop.update(res.loop)
     return ScanToMapResult(np.stack(poses), np.array(it1), np.array(it), np.array(n_corr),
-                           np.array(rebuilds))
+                           np.array(rebuilds), loop)
 
 
 def main(argv=None):
