@@ -12,7 +12,7 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives three paths. The first two run B1-B3:
+one-lane entries), and drives four paths. The first three run B1-B3:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -23,7 +23,22 @@ one-lane entries), and drives three paths. The first two run B1-B3:
   seed 0) through `vfmreg_tpu_torch.pipeline.registration_node
   .precompute_scene_batched`: GT ICP and the vfm RANSAC + refine ICP rows
   checked against the true poses on every lane, the vanilla ICP row
-  reported, and a second call bit-identical to the first;
+  reported, and a second call bit-identical to the first; then its two rare
+  paths, each gated the same way: the 1 m retry (one scan cropped to an
+  8 m radius) and the query-budget re-match (a budget of 4 queries);
+* node: the evaluation driver's scene loop on the driver scene in a scene
+  file's layout (`pipeline.synthetic.scene_file_layout`: the map as two map
+  clouds, every descriptor row with a positive sum) through
+  `RegistrationNode.run_scene` with the vfm RANSAC and TEASER columns, once
+  batched (the card's default) and once serial: host map accumulation
+  (one point per occupied 0.25 m voxel), the batched row or the serial
+  methods, the serial TEASER column (B1 per correspondence search, exact max
+  clique on the host, GNC-TLS on the card, one-lane ICP refine), errors
+  and the recall summary. GT ICP gated against the true poses, vfm RANSAC +
+  ICP and vfm TEASER + ICP against GT ICP in the node's own tables, serial
+  = batched (GT and vanilla ICP bit for bit, RANSAC within 2e-3), B1-B3
+  checked at the serial column's shapes, and `register_frame`'s VFM branch
+  on one full-width scan gated against its true pose;
 * descriptor: the DINOv2 descriptor pass at ViT-S/14 full width (384
   wide, 12 layers, 6 heads of 64) with random weights from a seeded
   generator (no checkpoint is in the repository), over 8 clouds of 16,384
@@ -36,8 +51,10 @@ one-lane entries), and drives three paths. The first two run B1-B3:
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path was launched as often as
-the path's own counts say: B1 at least once, B2 once per step call of the
-ICP loops (each call steps every live lane of a row), B3 once per rebuild
+the path's own counts say: B1 at least once (in the node, once per serial
+correspondence search besides), B2 once per step call of the ICP loops
+(each call steps every live lane of a row; in the node, summed over every
+ICP loop the scene ran, `registration.icp.recording_loops`), B3 once per rebuild
 round, B5 12 times per image. Per ICP row it prints the loop's step calls,
 reads and rebuild rounds beside the lanes' iterations and rebuilds, and
 checks them against each other (`loop_check`). No path launches B4 (the ICP
@@ -48,9 +65,11 @@ B1 and B5 run 3xTF32 on the tensor cores, so their bound is three TF32
 products per f32 product at the TF32 tensor-core rate; B2-B4 keep the f32
 CUDA-core rate. It prints one JSON line per phase (device, build, data,
 warmup, kernel_check for each kernel on the slice, slice, driver_data,
-kernel_check for each kernel on the driver row, driver, kernel_check for
-B5 at the pass's own q, k, v, at [2, 200, 4, 32] and at T = 320,
-descriptor), then
+kernel_check for each kernel on the driver row, driver, driver_retry,
+driver_rematch, node_data, node_batched, node_serial,
+node_serial_vs_batched, kernel_check for B1-B3 at the node's serial shapes,
+node_register_frame_vfm, kernel_check for B5 at the pass's own q, k, v, at
+[2, 200, 4, 32] and at T = 320, descriptor), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
 under "paths"), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises and the script
@@ -58,6 +77,7 @@ exits nonzero; without CUDA, or without the port package beside it, it
 exits nonzero before printing any result.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -79,6 +99,11 @@ RTE_GATE_M, RRE_GATE_DEG = 0.3, 1.5
 # pick either row). B2: each moment within MOMENT_RTOL of the sum of the
 # absolute values of its terms (the kernel sums in another order).
 SIM_ATOL, GAP, MOMENT_RTOL = 1e-5, 1e-5, 1e-4
+# Node phase: the RANSAC rows of the serial and batched runs within this of
+# each other (tests/test_harness.py's bar); GT and vanilla ICP bit for bit.
+SERIAL_RANSAC_ATOL = 2e-3
+# The driver's retry call crops this scan to an 8 m radius.
+RETRY_SCAN = 1
 # B2's finishing stage fed the kernel's own moments is held bit for bit
 # against the plain version on the card (the same f32 operations in the same
 # order, sinf and cosf the same functions): dx, est, T and the lane state.
@@ -825,7 +850,231 @@ def drive_driver(dev, peaks, rows):
                            f"B2 step calls {step_calls}, B3 rebuild rounds {rebuild_rounds}, rows {loops}")
     if not repeat_ok:
         raise RuntimeError("a second driver call gave other poses, iterations or rebuilds")
-    return launches
+    del scene["scene_point_clouds_device"], raw, raw_mask
+    drive_driver_paths(dev, scene, lm, true_poses)
+    del lm
+    torch.cuda.empty_cache()
+    return launches, (scene, local_map, true_poses)
+
+
+def drive_driver_paths(dev, scene, lm, true_poses):
+    """The driver row's two rare paths at full width, each gated like the
+    driver phase (GT ICP and vfm RANSAC + ICP on every lane): the 1 m retry,
+    with scan RETRY_SCAN cropped to an 8 m radius (a handful of 5 m voxels,
+    below 75 correspondences), and the query-budget re-match, with a budget
+    of 4 queries per scan (every scan re-matched at full width)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline import registration_node as rn
+
+    cropped = list(scene["scene_point_clouds"])
+    c = cropped[RETRY_SCAN]
+    cropped[RETRY_SCAN] = c[np.linalg.norm(c[:, :2], axis=1) < 8.0]
+    for name, scn, budget in (("retry", dict(scene, scene_point_clouds=cropped), 2048),
+                              ("rematch", scene, 4)):
+        _build.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = rn.precompute_scene_batched(scn, lm, device=dev, q5_budget=budget)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        errs = {k: [compute_errors(p, t) for p, t in zip(res[k], true_poses)] for k in ("gt", "vfm_ransac_icp")}
+        lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for v in errs.values() for rte, rre in v)
+        if name == "retry":
+            taken = res["retried"] == [RETRY_SCAN]
+        else:
+            taken = "re-matching them at full width" in out.getvalue() and res["retried"] == []
+        # B1: the 5 m pass, then the retry's or the re-match's pass.
+        b1_ok = launches.get("cosine_argmax", 0) == 2
+        emit({"phase": f"driver_{name}", "ok": lanes_ok and taken and b1_ok, "seconds": seconds,
+              "q5_budget": budget, "retried": res["retried"], "path_taken": taken,
+              "corr_counts": res["corr_counts"], "snap_counts": res["snap_counts"],
+              "scan_sizes": res["scan_sizes"], "stage_seconds": res["stats"]["seconds"],
+              "rte_m": {k: [e[0] for e in v] for k, v in errs.items()},
+              "rre_deg": {k: [e[1] for e in v] for k, v in errs.items()}, "launches": launches})
+        if not (lanes_ok and taken and b1_ok):
+            raise RuntimeError(f"driver {name} path: taken {taken}, B1 launches {launches}, errors {errs}")
+
+
+def drive_node(dev, peaks, rows, scene, local_map, true_poses):
+    """The node phase: the driver scene in a scene file's layout
+    (`pipeline.synthetic.scene_file_layout`) through
+    `RegistrationNode.run_scene` with the vfm RANSAC and TEASER columns,
+    batched (the card's default) and serial, each counted; the kernels at
+    the serial column's own shapes; then `register_frame`'s VFM branch on
+    one full-width scan with descriptors. Gates: recall (GT ICP against the
+    true poses; vfm RANSAC + ICP and vfm TEASER + ICP against GT ICP, in the
+    node's own tables), serial = batched (GT and vanilla ICP bit for bit,
+    the RANSAC rows within SERIAL_RANSAC_ATOL), every kernel launched as the
+    loops count, and one map point per occupied 0.25 m voxel."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.kiss import get_voxel_hash_map, register_frame, voxel_down_sample
+    from vfmreg_tpu_torch.kiss.voxelization import _voxel_keys
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops import matching
+    from vfmreg_tpu_torch.ops.matching import l2_normalize
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+    from vfmreg_tpu_torch.pipeline.registration_node import RegistrationNode
+    from vfmreg_tpu_torch.pipeline.synthetic import scene_file_layout
+    from vfmreg_tpu_torch.registration import icp
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
+
+    t0 = time.perf_counter()
+    layout = scene_file_layout(scene, local_map)
+    occupied = int(np.unique(_voxel_keys(np.concatenate([c[:, :3] for c in layout["map_point_clouds"]]),
+                                         0.25)).size)
+    emit({"phase": "node_data", "seconds": time.perf_counter() - t0, "map_clouds":
+          [list(c.shape) for c in layout["map_point_clouds"]], "occupied_0.25m_voxels": occupied})
+    methods = dict(methods_ransac=[("vfm", True)], methods_teaser=[("vfm", True)], methods_pointdsc=[])
+    runs = {}
+    with tempfile.TemporaryDirectory() as empty:
+        for mode, batch in (("batched", None), ("serial", False)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                node = RegistrationNode(empty, device=dev, batch_scans=batch, **methods)
+            if node.batch_scans != (mode == "batched"):
+                raise RuntimeError(f"node: batch_scans={node.batch_scans} in the {mode} run")
+            gts, maps = {}, []
+            score, accumulate = node.compute_errors, node._accumulate_map
+
+            def recording(gt_pose, pose, method, node=node, gts=gts, score=score):
+                gts.setdefault(node.scan_idx, np.array(gt_pose))
+                return score(gt_pose, pose, method)
+
+            def keep_map(scn, maps=maps, accumulate=accumulate):
+                maps.append(accumulate(scn))
+                return maps[-1]
+
+            node.compute_errors, node._accumulate_map = recording, keep_map
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), icp.recording_loops() as calls:
+                node.run_scene(layout)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs[mode] = dict(node=node, gts=[gts[i] for i in sorted(gts)], seconds=seconds,
+                              launches=dict(_build.LAUNCHES), calls=calls, map=maps[0], log=out.getvalue())
+
+    ok_all = True
+    for mode, r in runs.items():
+        node, calls = r["node"], r["calls"]
+        gt_errs = [compute_errors(p, t) for p, t in zip(r["gts"], true_poses)]
+        gated = {m: list(zip(node.trans_errors[m], node.rot_errors[m])) for m in ("vfm_ransac_icp", "vfm_teaser_icp")}
+        recall_ok = (len(gt_errs) == BATCH
+                     and all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for rte, rre in gt_errs)
+                     and all(len(v) == BATCH and all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for rte, rre in v)
+                             for v in gated.values()))
+        loop = collections.Counter()
+        for c in calls:
+            loop.update(c["loop"])
+        loops = loop_check(loop, [i for c in calls for i in c["iterations"]],
+                           [k for c in calls for k in c["rebuilds"]], GN_STEPS_PER_READ,
+                           sum(max(c["iterations"]) for c in calls))
+        b1_floor = node.vfm_searches + (1 if mode == "batched" else 0)
+        launches = r["launches"]
+        launches_ok = (launches.get("cosine_argmax", 0) >= b1_floor
+                       and launches.get("gn_moments_from_cache", 0) == loop["step_calls"] > 0
+                       and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"] > 0
+                       and loops["ok"])
+        map_ok = r["map"].shape[0] == occupied
+        ok = recall_ok and launches_ok and map_ok
+        ok_all &= ok
+        summary = r["log"].splitlines()[-12:]
+        emit({"phase": f"node_{mode}", "ok": ok, "seconds": r["seconds"], "scans": BATCH,
+              "stage_seconds": node.stage_seconds, "accumulated_map_points": int(r["map"].shape[0]),
+              "occupied_0.25m_voxels": occupied, "map_ok": map_ok,
+              "batched_row_stage_seconds": node.batched_stats["seconds"] if node.batched_stats else None,
+              "gt_rte_m": [e[0] for e in gt_errs], "gt_rre_deg": [e[1] for e in gt_errs],
+              "rte_m": dict(node.trans_errors), "rre_deg": dict(node.rot_errors),
+              "recall": {m: [node.compute_success_rate(m, *t) for t in ((0.3, 15), (0.6, 1.5), (2, 5))]
+                         for m in node.rot_errors},
+              "launches": launches, "serial_vfm_searches": node.vfm_searches, "b1_floor": b1_floor,
+              "icp_calls": len(calls), "icp_loops": loops, "summary": summary})
+        if not ok:
+            raise RuntimeError(f"node {mode}: recall {recall_ok} (GT {gt_errs}, {gated}), launches {launches_ok} "
+                               f"({launches}, floor {b1_floor}, {loops}), map {r['map'].shape[0]} vs {occupied}")
+
+    # Serial = batched, scan by scan.
+    sb, ss = runs["batched"]["node"], runs["serial"]["node"]
+    gt_equal = all(np.array_equal(a, b) for a, b in zip(runs["batched"]["gts"], runs["serial"]["gts"]))
+    icp_equal = sb.trans_errors["icp"] == ss.trans_errors["icp"] and sb.rot_errors["icp"] == ss.rot_errors["icp"]
+    ransac_gap = max(abs(a - b) for m in ("vfm_ransac", "vfm_ransac_icp") for e in ("trans_errors", "rot_errors")
+                     for a, b in zip(getattr(sb, e)[m], getattr(ss, e)[m]))
+    teaser_equal = all(getattr(sb, e)[m] == getattr(ss, e)[m] for m in ("vfm_teaser", "vfm_teaser_icp")
+                       for e in ("trans_errors", "rot_errors"))
+    same_ok = gt_equal and icp_equal and ransac_gap <= SERIAL_RANSAC_ATOL
+    emit({"phase": "node_serial_vs_batched", "ok": same_ok, "gt_bit_identical": gt_equal,
+          "icp_bit_identical": icp_equal, "ransac_max_abs_gap": ransac_gap, "teaser_identical": teaser_equal})
+    if not same_ok:
+        raise RuntimeError(f"node: serial != batched (GT {gt_equal}, icp {icp_equal}, RANSAC gap {ransac_gap})")
+
+    # The kernels at the serial column's shapes: scan 0's 5 m queries padded
+    # to a bucket against the node's map (B1), and one lane at scan 0's ICP
+    # width at the GT ICP's start (B2, B3).
+    node = runs["serial"]["node"]
+    acc = runs["serial"]["map"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        vmap = get_voxel_hash_map(node.config, device=dev)
+    vmap.add_points(acc)
+    grid = vmap.device_grid()
+    scan0 = voxel_down_sample(layout["scene_point_clouds"][0], 0.1)
+    dv = node._double_voxelize(scan0)
+    q5 = voxel_down_sample(dv, 5.0)
+    n_q = bucket_size(q5.shape[0])
+    qf = torch.zeros((n_q, q5.shape[1] - 3), device=dev)
+    qf[: q5.shape[0]] = torch.from_numpy(q5[:, 3:]).to(dev)
+    live = torch.arange(n_q, device=dev) < q5.shape[0]
+    qn = torch.cat([l2_normalize(qf[i : i + matching._NORM_ROWS])
+                    for i in range(0, n_q, matching._NORM_ROWS)]).contiguous()
+    rows["cosine_argmax"] = check_cosine("node", qn, l2_normalize(grid.feats).contiguous(), grid.valid, live, peaks)
+    w = bucket_size(dv.shape[0])
+    gt0 = runs["serial"]["gts"][0]
+    src = torch.zeros((1, w, 3), device=dev)
+    src[0, : dv.shape[0]] = torch.from_numpy((dv[:, :3] @ gt0[:3, :3].T + gt0[:3, 3]).astype(np.float32)).to(dev)
+    mask = (torch.arange(w, device=dev) < dv.shape[0])[None]
+    group = champion_group(grid)
+    planes, caches = lane_planes(grid, src, mask, group)
+    rows["champions_from_planes"], champs = check_champions_lanes("node", planes, src, mask, group, caches, peaks)
+    sigma = node.config.adaptive_threshold.initial_threshold
+    rows["gn_moments_from_cache"] = check_gn_lanes("node", champs, src, mask, sigma / 3, 3 * sigma, peaks)
+    del planes, caches, champs, grid
+
+    # register_frame's VFM branch: scan 1 with its descriptors, from its stored pose.
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with icp.recording_loops() as calls:
+        pose = register_frame(layout["scene_point_clouds"][1], vmap, layout["scene_poses"][1], 3 * sigma,
+                              sigma / 3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rte, rre = compute_errors(pose, true_poses[1])
+    launches = dict(_build.LAUNCHES)
+    vfm_ok = (rte < RTE_GATE_M and rre < RRE_GATE_DEG and len(calls) == 1
+              and launches.get("cosine_argmax", 0) == 1
+              and launches.get("gn_moments_from_cache", 0) == calls[0]["loop"]["step_calls"]
+              and launches.get("champions_from_planes", 0) == calls[0]["loop"]["rebuild_rounds"])
+    emit({"phase": "node_register_frame_vfm", "ok": vfm_ok, "seconds": seconds, "points": int(
+          layout["scene_point_clouds"][1].shape[0]), "rte_m": rte, "rre_deg": rre, "launches": launches,
+          "icp_loop": calls})
+    if not vfm_ok:
+        raise RuntimeError(f"register_frame's VFM branch: rte {rte}, rre {rre}, launches {launches}")
+    return runs["batched"]["launches"]
 
 
 def main() -> int:
@@ -940,9 +1189,15 @@ def main() -> int:
     del mp, mf, sp, sf, res
     torch.cuda.empty_cache()
 
-    # The driver's method row, then the descriptor pass, each counted on its own.
+    # The driver's method row, the scene loop around it, then the descriptor
+    # pass, each counted on its own.
     rows["driver"] = {}
-    by_path = {"slice": launches, "driver": drive_driver(dev, peaks, rows["driver"])}
+    by_path = {"slice": launches}
+    by_path["driver"], driver_scene = drive_driver(dev, peaks, rows["driver"])
+    torch.cuda.empty_cache()
+    rows["node"] = {}
+    by_path["node"] = drive_node(dev, peaks, rows["node"], *driver_scene)
+    del driver_scene
     torch.cuda.empty_cache()
     rows["descriptor"] = {}
     by_path["descriptor"] = drive_descriptor(dev, peaks, rows["descriptor"])

@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 from vfmreg_tpu.pipeline.registration_node import RegistrationNode  # noqa: E402
 from vfmreg_tpu_torch.geometry.metrics import compute_errors  # noqa: E402
 from vfmreg_tpu_torch.pipeline import registration_node as trn  # noqa: E402
+from vfmreg_tpu_torch.pipeline import synthetic  # noqa: E402
 from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene  # noqa: E402
 from vfmreg_tpu_torch.registration.icp import MAX_NUM_ITERATIONS  # noqa: E402
 
@@ -121,9 +122,11 @@ def test_driver_retry_matches_jax():
 
 
 def test_driver_main_runs_and_needs_a_device(capsys, monkeypatch):
-    trn.main(["--device", "cpu"])
+    """The synthetic demo of the method row (`python -m
+    vfmreg_tpu_torch.pipeline.synthetic`)."""
+    synthetic.main(["--device", "cpu"])
     out = capsys.readouterr().out
     assert "vfm_ransac_icp" in out and "0.3, 15" in out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        trn.main([])
+        synthetic.main([])

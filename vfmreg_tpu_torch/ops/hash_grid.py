@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from vfmreg_tpu_torch.ops.nn_kernel import nn_argmin
-from vfmreg_tpu_torch.ops.voxel import INVALID_HASH, int32_view, voxel_coords, voxel_hash
+from vfmreg_tpu_torch.ops.voxel import INVALID_HASH, bucket_size, int32_view, voxel_coords, voxel_hash
 
 # Linear-probe budget of the table: one packed row of 8 slots covers 7 probe
 # positions from an odd base slot.
@@ -148,6 +148,26 @@ def build_hash_grid(
         voxel_size=float(voxel_size),
         max_points_per_voxel=max_points_per_voxel,
     )
+
+
+def build_padded_grid(
+    points: torch.Tensor, feats: Optional[torch.Tensor], voxel_size: float, max_points_per_voxel: int
+) -> HashGrid:
+    """The grid of M points [M, 3] (and their descriptors [M, D], or None),
+    zero-padded to `bucket_size(M)` rows, as the reference's
+    `VoxelHashMap.device_grid()` builds a map's grid (the padding fixes the
+    order of every padded reduction). Runs where `points` lives."""
+    m0 = points.shape[0]
+    dev = points.device
+    cap = bucket_size(max(m0, 1))
+    pts = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
+    pts[:m0] = points
+    mask = torch.arange(cap, device=dev) < m0
+    if feats is not None:
+        f = torch.zeros((cap, feats.shape[1]), dtype=torch.float32, device=dev)
+        f[:m0] = feats
+        feats = f
+    return build_hash_grid(pts, voxel_size, mask=mask, feats=feats, max_points_per_voxel=max_points_per_voxel)
 
 
 def _lookup_buckets(grid: HashGrid, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

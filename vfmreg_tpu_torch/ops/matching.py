@@ -65,6 +65,13 @@ class VFMCorrespondences(NamedTuple):
         return VFMCorrespondences(*(f[b] for f in self))
 
 
+def _sq3(v: torch.Tensor) -> torch.Tensor:
+    """|v|^2 over a last axis of 3, elementwise, in ascending order: a
+    reduction over a small axis may round otherwise on the card as the
+    leading axes change."""
+    return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
+
+
 def _chunked_argmin_l2(
     queries: torch.Tensor, database: torch.Tensor, db_mask: torch.Tensor, chunk: int = 4096
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,13 +82,14 @@ def _chunked_argmin_l2(
     chunk and a strict '<' across chunks give the lowest index on ties, as
     the reference's scan does. The expansion cancels at world-scale
     coordinates, so callers centre both clouds first and never gate on
-    `best_d2`."""
-    q2 = torch.sum(queries * queries, dim=-1)
+    `best_d2`. Squared norms are written out (`_sq3`), so a row's norm
+    does not depend on the batch and padding around it."""
+    q2 = _sq3(queries)
     best_val = torch.full(q2.shape, float("inf"), dtype=torch.float32, device=queries.device)
     best_idx = torch.zeros(q2.shape, dtype=torch.int64, device=queries.device)
     for off in range(0, database.shape[-2], chunk):
         db = database[..., off : off + chunk, :]
-        val = torch.sum(db * db, dim=-1)[..., None, :] - 2.0 * (queries @ db.transpose(-1, -2))
+        val = _sq3(db)[..., None, :] - 2.0 * (queries @ db.transpose(-1, -2))
         val = torch.where(db_mask[..., None, off : off + chunk], val, float("inf"))
         v, j = torch.min(val, dim=-1)
         better = v < best_val
@@ -90,9 +98,18 @@ def _chunked_argmin_l2(
     return torch.clamp(best_val + q2, min=0.0), best_idx
 
 
+# Query rows normalized per call of the norm: the driver's query sets are
+# padded to multiples of it, so a query row is normalized in a block of the
+# same shape whether its scan is matched alone or in a batch (the norm's
+# reduction on the card may sum in another order as the row count changes).
+_NORM_ROWS = 512
+
+
 def _best_match(scan_feats, map_feats, map_mask) -> Tuple[torch.Tensor, torch.Tensor]:
     """L2-normalize both sides and run the cosine arg-max (kernel B1)."""
-    qn = l2_normalize(scan_feats.to(torch.float32)).contiguous()
+    q = scan_feats.to(torch.float32)
+    qn = torch.cat([l2_normalize(q[i : i + _NORM_ROWS]) for i in range(0, max(q.shape[0], 1), _NORM_ROWS)])
+    qn = qn.contiguous()
     dbn = l2_normalize(map_feats.to(torch.float32)).contiguous()
     return cosine_argmax(qn, dbn, map_mask.contiguous())
 

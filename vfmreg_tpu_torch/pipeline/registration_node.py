@@ -34,24 +34,37 @@ the host where the lanes go between steps. Every stage ends with a
 synchronize on the card, so the stage times in `stats["seconds"]` are what
 each stage took.
 
-Run as a script to register a small synthetic scene and print the recall
-table:
+`RegistrationNode` is the scene loop around that row (reference
+`registration_node.py:157-1519`): it reads `scene_*.h5` files, accumulates
+the map, runs the method matrix per scan (the batched row, or the serial
+per-scan methods), the serial TEASER column, and keeps the errors, the
+recall summary and the error pickle. Run as the reference's CLI:
 
-    python -m vfmreg_tpu_torch.pipeline.registration_node [--device cpu]
+    python -m vfmreg_tpu_torch.pipeline.registration_node FOLDER [--device cpu]
+
+(reading the scene files needs `h5py`). `pipeline/synthetic.py` runs the
+batched row on a small synthetic scene.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import pickle
+import signal
+import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, MAX_POINTS_PER_VOXEL, VOXEL_SIZE
+from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, MAX_POINTS_PER_VOXEL, VOXEL_SIZE, load_config
+from vfmreg_tpu_torch.data.h5io import read_scenes
 from vfmreg_tpu_torch.geometry.metrics import compute_errors, success_rate
-from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
+from vfmreg_tpu_torch.ops.hash_grid import HashGrid, build_padded_grid
 from vfmreg_tpu_torch.ops.matching import VFMCorrespondences, get_vfm_correspondences_batched
 from vfmreg_tpu_torch.ops.voxel import bucket_size, voxel_down_sample_masked
 from vfmreg_tpu_torch.parallel.mesh import (
@@ -59,9 +72,12 @@ from vfmreg_tpu_torch.parallel.mesh import (
     batched_icp_two_phase,
     batched_ransac,
 )
-from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene
-from vfmreg_tpu_torch.registration.ransac import snap_correspondences
+from vfmreg_tpu_torch.kiss import VoxelHashMap, get_voxel_hash_map, register_frame, voxel_down_sample
+from vfmreg_tpu_torch.registration.ransac import ransac_registration, snap_correspondences
+from vfmreg_tpu_torch.registration.teaser import teaser_registration_exact
 from vfmreg_tpu_torch.utils.device import resolve_device
+from vfmreg_tpu_torch.utils.logging import print_msg
+from vfmreg_tpu_torch.utils.pcl import transform_pcl
 from vfmreg_tpu_torch.utils.precision import full_precision
 
 RANSAC_HYPOTHESES = 50000  # registration_node.py:319-327
@@ -136,19 +152,11 @@ def stack_scans(clouds: Sequence[np.ndarray], dims: int):
 
 
 def build_map_grid(local_map, voxel_size: float, dev: torch.device):
-    """`VoxelHashMap.device_grid()` of a map [M, 3 + D] (numpy or tensor):
-    zero-padded to `bucket_size(M)` rows and built with the per-voxel cap."""
+    """`VoxelHashMap.device_grid()` of a map [M, 3 + D] (numpy or tensor) on
+    `dev`: padded to `bucket_size(M)` rows, with the per-voxel cap."""
     lm = torch.as_tensor(local_map, dtype=torch.float32).to(dev)
-    m0, cols = lm.shape
-    cap = bucket_size(max(m0, 1))
-    pts = torch.zeros((cap, 3), dtype=torch.float32, device=dev)
-    feats = torch.zeros((cap, max(cols - 3, 1)), dtype=torch.float32, device=dev)
-    mask = torch.zeros(cap, dtype=torch.bool, device=dev)
-    pts[:m0] = lm[:, :3]
-    feats[:m0, : cols - 3] = lm[:, 3:]
-    mask[:m0] = True
-    return build_hash_grid(pts, voxel_size, mask=mask, feats=feats,
-                           max_points_per_voxel=MAX_POINTS_PER_VOXEL)
+    return build_padded_grid(lm[:, :3], lm[:, 3:] if lm.shape[1] > 3 else None, voxel_size,
+                             MAX_POINTS_PER_VOXEL)
 
 
 def precompute_scene_batched(
@@ -156,6 +164,7 @@ def precompute_scene_batched(
     local_map,
     device=None,
     q5_budget: int = 2048,
+    grid: Optional[HashGrid] = None,
 ) -> Dict:
     """The method row of one scene (see the module docstring).
 
@@ -163,6 +172,9 @@ def precompute_scene_batched(
     (B scans [n, 3 + D] in their own frames), or, in place of the clouds,
     "scene_point_clouds_device": (raw [B, N, 3 + D], mask [B, N]) already
     stacked. `local_map` is [M, 3 + D]. Runs on `device` (default: the card).
+    `grid` is the map's grid where the caller has built it
+    (`build_map_grid`'s, or `kiss.mapping.VoxelHashMap.device_grid()` of the
+    same map with descriptors, which is the same grid).
 
     Returns the reference's keys: "gt", "vfm_ransac_raw",
     "vfm_ransac_ortho", "vfm_ransac_icp", "icp" ([B, 4, 4] f64),
@@ -188,7 +200,8 @@ def precompute_scene_batched(
     poses = np.stack([np.asarray(p, dtype=np.float64) for p in scene["scene_poses"]])
     b = poses.shape[0]
 
-    grid = build_map_grid(local_map, voxel_size, dev)
+    if grid is None:
+        grid = build_map_grid(local_map, voxel_size, dev)
     tic("grid_build")
 
     resident = scene.get("scene_point_clouds_device")
@@ -326,16 +339,604 @@ def format_recall_table(table: Dict[str, List[float]]) -> str:
     return "\n".join(lines)
 
 
+
+
+# ---------------------------------------------------------------------------
+# The scene loop: `RegistrationNode` (reference `registration_node.py:157-1519`)
+# ---------------------------------------------------------------------------
+
+TEASER_NOISE_BOUND = 0.2  # registration_node.py:112-127
+# The reference's default method matrices (`registration_node.py:867-917`).
+DEFAULT_RANSAC = [(m, True) for m in ("fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet", "vfm")]
+DEFAULT_TEASER = [("fpfh", True), ("vfm", True)]
+DEFAULT_POINTDSC = [("fpfh", True), ("fcgf", True)]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"RegistrationNode: {what} is not ported yet (ROADMAP {item})")
+
+
+def _pad_rows(arr: np.ndarray, dev: torch.device, n: Optional[int] = None):
+    """[k, c] rows zero-padded to n (default `bucket_size(k)`) rows on
+    `dev`, with their mask."""
+    arr = np.asarray(arr, dtype=np.float32)
+    if n is None:
+        n = bucket_size(max(arr.shape[0], 1))
+    out = torch.zeros((n,) + arr.shape[1:], dtype=torch.float32, device=dev)
+    out[: arr.shape[0]] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[: arr.shape[0]] = True
+    return out, mask
+
+
+class RegistrationNode:
+    """The evaluation driver's scene loop, with the reference's constructor
+    and method names (`vfmreg_tpu/pipeline/registration_node.py:157`).
+
+    Per scene (`make_step` reads `scene_*.h5`, `run_scene` does the rest):
+    the map clouds accumulated and voxelized at 0.25 m; per scan a 0.1 m
+    voxelize, the RobotCar GT fixes, GT ICP from the stored pose, the vfm
+    RANSAC column (5 m cosine matches with the 1 m retry, snap, 50,000
+    hypotheses from a generator seeded with the scan index, ICP refine), the
+    vfm TEASER column (exact max clique, GNC-TLS, ICP refine) and the
+    two-phase vanilla ICP from the identity; errors against the GT ICP pose,
+    the recall summary, and `dump_errors`' pickle.
+
+    `batch_scans` (default: on the card, not on the CPU, as the reference
+    turns it on for the TPU) runs the GT ICP, vfm RANSAC + refine and vanilla
+    rows of a scene as the batched method row (`precompute_scene_batched`,
+    which always preprocesses the scans on the device: the rows the host
+    chain keeps). The TEASER column is serial either way. Both paths give
+    the same rows: GT and vanilla ICP bit for bit, RANSAC within the
+    refine's tolerance (tests, `chip_smoke.py`). `feature_generator`,
+    `rng_seed`, `kitti_dir` and `device_preprocess` are accepted for the
+    reference's signature and read by nothing that is ported.
+
+    Methods other than vfm drop out of the matrices, as the reference's
+    `available()` drops an extractor that is missing (their descriptors and
+    PointDSC wait for ROADMAP A13). The cluster experiments, scan-to-scan,
+    map sharding (A15) and the visualization dump (A9b) raise.
+    Runs on `device` (default: the card)."""
+
+    # Manual RobotCar GT improvements (`registration_node.py:597-623`).
+    _ROBOTCAR_GT_FIX = {
+        0: [15, 5, 0], 6: [3.5, 2, 0], 7: [10, 8, 0], 10: [5, 2, 0], 12: [3, 1, 0],
+        13: [4, 2, 0], 14: [-2, 2, 0], 15: [3, 2, 0], 17: [2, 2, 0], 18: [8, 2, 0],
+        21: [2, 1, 0], 23: [5, 2, 0], 24: [0, 2, 0],
+    }
+
+    def __init__(
+        self,
+        folder: Path,
+        interactive: bool = False,
+        cluster_removal_prob: float = 0,
+        scan_to_scan: Optional[str] = None,
+        methods_ransac: Optional[List[Tuple[str, bool]]] = None,
+        methods_teaser: Optional[List[Tuple[str, bool]]] = None,
+        methods_pointdsc: Optional[List[Tuple[str, bool]]] = None,
+        feature_generator=None,
+        viz=None,
+        rng_seed: int = 42,
+        cluster_insertion_dir: Optional[Path] = None,
+        kitti_dir: Optional[Path] = None,
+        batch_scans: Optional[bool] = None,
+        device_preprocess: Optional[bool] = None,
+        map_sharding: bool = False,
+        dump_viz_dir: Optional[Path] = None,
+        device=None,
+    ) -> None:
+        if cluster_removal_prob > 0 or cluster_insertion_dir is not None:
+            raise _not_ported("the cluster removal and insertion experiments", "A15")
+        if scan_to_scan is not None:
+            raise _not_ported("scan_to_scan", "A15")
+        if map_sharding:
+            raise _not_ported("map_sharding", "A15")
+        if dump_viz_dir is not None:
+            raise _not_ported("dump_viz_dir", "A9b")
+        self.device = resolve_device(device)
+        full_precision()
+        self.interactive = interactive
+        self.viz = viz
+        if batch_scans is None:
+            batch_scans = self.device.type == "cuda"
+        self.batch_scans = batch_scans
+        self._q5_budget = 2048
+        # Host voxel-hash maps of the current local map, shared by the GT ICP,
+        # correspondence and refine stages of a scene.
+        self._hash_map_cache: Dict[bool, tuple] = {}
+
+        self.filenames = sorted(Path(folder).glob("scene_*.h5"))
+        # One-ahead scene prefetch: the next file's read overlaps this scene.
+        self._scene_pool = ThreadPoolExecutor(max_workers=1)
+        self._scene_futures = {}
+        self._scene_name = ""
+        self.scene_idx = 0
+        self.scan_idx = 0
+        self.map_descriptor_cache: Dict[str, tuple] = {}
+
+        self.rot_errors: Dict[str, List[float]] = {}
+        self.trans_errors: Dict[str, List[float]] = {}
+        self.points_in_map: List[int] = []  # the cluster experiments' map sizes (A15)
+        self.stop_publishing = False
+        # Per scene: seconds by stage, the batched row's stats, and the serial
+        # correspondence searches (one kernel B1 launch each).
+        self.stage_seconds: Dict[str, float] = {}
+        self._clock: Optional[float] = None  # set while run_scene times its stages
+        self.batched_stats: Optional[Dict] = None
+        self.vfm_searches = 0
+
+        dropped = {}
+
+        def available(kind, pairs):
+            dropped[kind] = [m for m, _ in pairs if m != "vfm"]
+            return [(m, icp) for m, icp in pairs if m == "vfm"]
+
+        self.methods_ransac = available(
+            "ransac", methods_ransac if methods_ransac is not None else DEFAULT_RANSAC)
+        self.methods_teaser = available(
+            "teaser", methods_teaser if methods_teaser is not None else DEFAULT_TEASER)
+        self.methods_pointdsc = available(
+            "pointdsc", methods_pointdsc if methods_pointdsc is not None else DEFAULT_POINTDSC)
+        if any(dropped.values()):
+            print("Methods not ported, dropped: "
+                  + "; ".join(f"{k} {v}" for k, v in dropped.items() if v)
+                  + " (the baseline descriptors and PointDSC wait for ROADMAP A13, "
+                  "the method matrix beyond the vfm row for A12)")
+
+        self.config = load_config(None, deskew=False, max_range=None)
+        print("Sigma:", self.config.adaptive_threshold.initial_threshold)
+        print("Voxel size:", self.config.mapping.voxel_size)
+        print("Max points per voxel:", self.config.mapping.max_points_per_voxel)
+        print("=" * 80)
+
+    def _tic(self, stage: str) -> None:
+        """Add the seconds since the last mark to `stage_seconds[stage]`
+        (after a synchronize on the card), while `run_scene` keeps time."""
+        if self._clock is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + now - self._clock
+        self._clock = now
+
+    # ------------------------------------------------------------ registrations
+    def _map_hash(self, local_map: np.ndarray, with_descriptors: bool) -> VoxelHashMap:
+        """Voxel hash of the current local map, built once per (map, variant).
+        Keyed by object identity: every stage of a scene sees the same map."""
+        cached = self._hash_map_cache.get(with_descriptors)
+        if cached is not None and cached[0] is local_map and cached[1] == local_map.shape:
+            return cached[2]
+        m = get_voxel_hash_map(self.config, device=self.device)
+        m.add_points(local_map if with_descriptors else np.ascontiguousarray(local_map[:, :3]))
+        self._hash_map_cache[with_descriptors] = (local_map, local_map.shape, m)
+        return m
+
+    @staticmethod
+    def _map_size(voxel_hash_map: VoxelHashMap) -> int:
+        """`point_cloud().shape[0]` without reading the points back."""
+        return int(voxel_hash_map.device_grid().valid.sum())
+
+    def _double_voxelize(self, pc: np.ndarray) -> np.ndarray:
+        """KISS double downsample, 0.5 v then 1.0 v, all columns kept
+        (`registration_node.py:289-290`)."""
+        vs = self.config.mapping.voxel_size
+        return voxel_down_sample(voxel_down_sample(pc, vs * 0.5), vs * 1.0)
+
+    def _voxelize_scan(self, raw_scan: np.ndarray) -> np.ndarray:
+        return self._double_voxelize(raw_scan[:, :3])
+
+    def compute_vfm_correspondences(
+        self, voxel_map: np.ndarray, raw_scan: np.ndarray, initial_pose: np.ndarray = np.eye(4)
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """`compute_vfm_correspondences` (`registration_node.py:396-425`): 5 m
+        queries, and 1 m ones below RETRY_BELOW matches."""
+        voxel_scan = self._double_voxelize(raw_scan)
+        voxel_hash_map = self._map_hash(voxel_map, with_descriptors=True)
+        pcl = transform_pcl(voxel_scan, initial_pose)
+        print(f"Map size: {self._map_size(voxel_hash_map)}, Scan size: {voxel_scan.shape[0]}")
+
+        correspondences = voxel_hash_map.get_vfm_correspondences(voxel_down_sample(pcl, 5.0), 0.8)
+        self.vfm_searches += 1
+        if correspondences[0].shape[0] < RETRY_BELOW:
+            print("[WARNING] Voxelized too sparse, retrying with a larger voxel size")
+            correspondences = voxel_hash_map.get_vfm_correspondences(voxel_down_sample(pcl, 1.0), 0.8)
+            self.vfm_searches += 1
+        return correspondences
+
+    def _refine(self, voxel_scan, voxel_hash_map, guess: np.ndarray) -> np.ndarray:
+        """The ICP refine of a RANSAC or TEASER pose at (3 sigma, sigma / 3),
+        from the guess with its rotation orthogonalized in place."""
+        guess[:3, :3] = orthogonalize(guess[:3, :3])
+        sigma = self.config.adaptive_threshold.initial_threshold
+        return register_frame(points=voxel_scan, voxel_map=voxel_hash_map, initial_guess=guess,
+                              max_correspondance_distance=3 * sigma, kernel=sigma / 3)
+
+    def ransac_registration(
+        self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, run_icp: bool = False
+    ):
+        """`ransac_registration` (`registration_node.py:273-357`), vfm."""
+        if method != "vfm":
+            raise _not_ported(f"the {method} descriptor", "A13")
+        src, tgt = self.compute_vfm_correspondences(voxel_map, raw_scan)
+        print(f"[{method}] Correspondences: {src.shape[0]}")
+        self._tic("ransac_match")
+
+        voxel_scan = self._voxelize_scan(raw_scan)
+        voxel_hash_map = self._map_hash(voxel_map, with_descriptors=False)
+        grid = voxel_hash_map.device_grid()
+        print(f"[{method}] Map size: {self._map_size(voxel_hash_map)}, Scan size: {voxel_scan.shape[0]}")
+
+        # Snap the correspondences into the voxelized clouds (`:295-310`),
+        # against the map grid's own rows, as the batched row does.
+        dev = self.device
+        s_pts, s_mask = _pad_rows(src, dev)
+        t_pts, _ = _pad_rows(tgt, dev, s_pts.shape[0])
+        scan_pts, scan_mask = _pad_rows(voxel_scan, dev)
+        snapped_src, snapped_tgt, snap_mask = snap_correspondences(
+            s_pts, t_pts, s_mask, scan_pts, scan_mask, grid.points, grid.valid
+        )
+        print(f"[{method}] Correspondences after filtering: {int(snap_mask.sum())}")
+
+        generator = torch.Generator(device=dev).manual_seed(self.scan_idx)
+        res = ransac_registration(snapped_src, snapped_tgt, snap_mask, generator,
+                                  num_hypotheses=RANSAC_HYPOTHESES)
+        ransac_pose = res.pose.cpu().numpy().astype(np.float64)
+        self._tic("ransac_solve")
+        if run_icp:
+            pose = self._refine(voxel_scan, voxel_hash_map, ransac_pose)
+            self._tic("ransac_refine")
+            return ransac_pose, pose
+        return ransac_pose, None
+
+    def teaser_registration(
+        self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, run_icp: bool = False
+    ):
+        """`teaser_registration` (`registration_node.py:91-159`), vfm."""
+        if method != "vfm":
+            raise _not_ported(f"the {method} descriptor", "A13")
+        src, tgt = self.compute_vfm_correspondences(voxel_map, raw_scan)
+        print(f"[{method}] Correspondences: {src.shape[0]}")
+        self._tic("teaser_match")
+
+        n = bucket_size(max(src.shape[0], 1))
+        s_pts, t_pts = np.zeros((n, 3), np.float32), np.zeros((n, 3), np.float32)
+        s_pts[: src.shape[0]], t_pts[: tgt.shape[0]] = src, tgt
+        s_mask = np.arange(n) < src.shape[0]
+        res = teaser_registration_exact(s_pts, t_pts, s_mask, noise_bound=TEASER_NOISE_BOUND,
+                                        device=self.device)
+        teaser_pose = res.pose.cpu().numpy().astype(np.float64)
+        self._tic("teaser_solve")
+        if run_icp:
+            voxel_hash_map = self._map_hash(voxel_map, with_descriptors=False)
+            voxel_scan = self._voxelize_scan(raw_scan)
+            pose = self._refine(voxel_scan, voxel_hash_map, teaser_pose)
+            self._tic("teaser_refine")
+            return teaser_pose, pose
+        return teaser_pose, None
+
+    def icp_registration(
+        self,
+        voxel_map: np.ndarray,
+        raw_scan: np.ndarray,
+        initial_pose: Optional[np.ndarray] = None,
+        dist: float = 3,
+        two_phase: bool = False,
+    ) -> np.ndarray:
+        """`icp_registration` (`registration_node.py:359-394`); `two_phase`
+        replays the batched vanilla row's phase split
+        (`kiss.registration.register_frame`)."""
+        voxel_scan = self._double_voxelize(raw_scan)
+        voxel_hash_map = self._map_hash(voxel_map, with_descriptors=raw_scan.shape[1] > 3)
+        print(f"Map size: {self._map_size(voxel_hash_map)}, Scan size: {voxel_scan.shape[0]}")
+
+        sigma = self.config.adaptive_threshold.initial_threshold
+        if initial_pose is None:
+            initial_pose = np.eye(4)
+        if raw_scan.shape[1] == 3:
+            return register_frame(
+                points=voxel_scan,
+                voxel_map=voxel_hash_map,
+                initial_guess=initial_pose,
+                max_correspondance_distance=dist * sigma,
+                kernel=sigma / dist,
+                two_phase=two_phase,
+            )
+        a = time.time()
+        pose, src_, tgt_ = register_frame(
+            points=voxel_scan,
+            voxel_map=voxel_hash_map,
+            initial_guess=initial_pose,
+            max_correspondance_distance=dist * sigma,
+            kernel=sigma / dist,
+            src_=np.array([[0, 0, 0]]),
+            tgt_=np.array([[0, 0, 0]]),
+        )
+        print(f"ICP time: {(time.time() - a):.5f}")
+        if self.viz is not None:
+            self.viz("correspondences", (src_, tgt_))
+        return pose
+
+    # ----------------------------------------------------------------- stepping
+    def _accumulate_map(self, scene) -> np.ndarray:
+        """Map accumulation and 0.25 m voxelization with the split above 1e6
+        points (`registration_node.py:556-580`)."""
+        voxel_size = 0.25
+        parts = []
+        for pose, pcl in zip(scene["map_poses"], scene["map_point_clouds"]):
+            pcl = pcl[np.sum(pcl[:, 3:], axis=1) > 0]  # drop descriptor-less points
+            pcl = voxel_down_sample(pcl, voxel_size).astype(pcl.dtype)
+            parts.append(transform_pcl(pcl, pose))
+        local_map = np.concatenate(parts, axis=0).astype(np.float32)
+        if local_map.shape[0] > 1000000:
+            mean_3d = np.mean(local_map[:, :3], axis=0)
+            map_a = voxel_down_sample(local_map[local_map[:, 0] > mean_3d[0]], voxel_size)
+            map_b = voxel_down_sample(local_map[local_map[:, 0] <= mean_3d[0]], voxel_size)
+            local_map = np.concatenate([map_a, map_b], axis=0).astype(np.float32)
+        else:
+            local_map = voxel_down_sample(local_map, voxel_size).astype(np.float32)
+        descriptor_dim = local_map.shape[1] - 3
+        local_map = local_map[:, : 3 + min(descriptor_dim, 384)]
+        print(f"Map voxelization (0.25m): {local_map.shape[0]}")
+        return local_map
+
+    def _gt_fixed_pose(self, pose) -> np.ndarray:
+        """The scene's GT pose with the manual RobotCar translation fixes,
+        shared by the serial loop and the batched row."""
+        pose = np.array(pose, dtype=np.float64)
+        if "robotcar" in self._scene_name:
+            fix = self._ROBOTCAR_GT_FIX.get(self.scene_idx)
+            if fix is not None:
+                pose[:3, 3] += np.array(fix, dtype=np.float64)
+        return pose
+
+    def _read_scene(self, idx):
+        fut = self._scene_futures.pop(idx, None)
+        if fut is not None:
+            return fut.result()
+        return read_scenes(self.filenames[idx])
+
+    def _prefetch_scene(self, idx) -> None:
+        if 0 <= idx < len(self.filenames) and idx not in self._scene_futures:
+            self._scene_futures[idx] = self._scene_pool.submit(read_scenes, self.filenames[idx])
+
+    def _precompute_scene_batched(self, scene, scene_local_map: np.ndarray) -> Dict:
+        """The scene's GT ICP, vfm RANSAC + refine and vanilla rows as the
+        batched method row, on the GT-fixed poses and the map's own grid."""
+        poses = [self._gt_fixed_pose(p) for p in scene["scene_poses"]]
+        grid = self._map_hash(scene_local_map, with_descriptors=True).device_grid()
+        res = precompute_scene_batched(
+            {"scene_poses": poses, "scene_point_clouds": scene["scene_point_clouds"]},
+            scene_local_map, device=self.device, q5_budget=self._q5_budget, grid=grid,
+        )
+        self.batched_stats = res["stats"]
+        return res
+
+    def make_step(self) -> None:
+        """One scene (`registration_node.py:548-989`): read it, prefetch the
+        next, then `run_scene`."""
+        if self.scene_idx >= len(self.filenames):
+            self.stop_publishing = True
+            return
+        name = self.filenames[self.scene_idx]
+        print(f"Current scene ID: {self.scene_idx} | {name.name}")
+        scene = self._read_scene(self.scene_idx)
+        self._prefetch_scene(self.scene_idx + 1)
+        self.run_scene(scene, name)
+
+    def run_scene(self, scene: Dict, name=None) -> None:
+        """The body of `make_step` on a scene dict in `data.h5io.read_scenes`'
+        layout: map accumulation, the method matrix per scan, errors and the
+        summary. `name` (the scene file's path) selects the RobotCar GT fixes.
+        Seconds by stage land in `stage_seconds` (the serial RANSAC and
+        TEASER columns split into match, solve and refine; what is left of
+        a column under its own name)."""
+        self._scene_name = Path(name).as_posix() if name is not None else ""
+        label = Path(name).name if name is not None else f"scene {self.scene_idx}"
+        n_scenes = max(len(self.filenames), self.scene_idx + 1)
+        self.stage_seconds, self.batched_stats = {}, None
+        self._clock = time.perf_counter()
+        try:
+            self._run_scene(scene, label, n_scenes)
+        finally:
+            self._clock = None
+
+    def _run_scene(self, scene: Dict, label: str, n_scenes: int) -> None:
+        tic = self._tic
+        scene_local_map = self._accumulate_map(scene)
+        tic("accumulate_map")
+
+        precomputed = None
+        if self.batch_scans and len(scene["scene_poses"]) >= 2:
+            precomputed = self._precompute_scene_batched(scene, scene_local_map)
+            tic("batched_row")
+
+        for i, (pose, point_cloud) in enumerate(zip(scene["scene_poses"], scene["scene_point_clouds"])):
+            results: Dict[str, Optional[np.ndarray]] = {}
+            print("=" * 80)
+            self.scan_idx = i
+            tmp = point_cloud.shape
+            point_cloud = voxel_down_sample(point_cloud, 0.1).astype(point_cloud.dtype)
+            print(f"Scan voxelization (0.1m): {tmp[0]} -> {point_cloud.shape[0]}")
+            pose = self._gt_fixed_pose(pose)
+            tic("scan_voxelize")
+
+            # GT pose: noiseless KISS-ICP (`:644-646`).
+            print(f'{"--- Ground truth: ICP w/o noise ---":-^80}')
+            if precomputed is not None:
+                gt_pose = precomputed["gt"][i]
+                print(f"Map size: {precomputed['map_size']}, "
+                      f"Scan size: {precomputed['scan_sizes'][i]} (batched)")
+            else:
+                gt_pose = self.icp_registration(scene_local_map, point_cloud[:, :3], pose)
+            print(f'{"--- Ground truth: ICP w/o noise ---":-^80}')
+            tic("gt_icp")
+
+            local_map = scene_local_map
+            # All computed poses are relative to this initial guess (`:859-861`).
+            initial_pose = np.eye(4)
+            point_cloud = transform_pcl(point_cloud, initial_pose)
+            if i == 0:
+                self.map_descriptor_cache = {}
+
+            print(f'{"--- RANSAC ---":-^80}')
+            for method, run_icp in self.methods_ransac:
+                key = f"{method}_ransac"
+                if precomputed is not None:
+                    print(f"[vfm] Correspondences: {precomputed['corr_counts'][i]} (batched)")
+                    print(f"[vfm] Correspondences after filtering: {precomputed['snap_counts'][i]}")
+                    # The serial path orthogonalizes the RANSAC pose in place
+                    # when it refines it (`:333-335`).
+                    if run_icp:
+                        results[key] = precomputed["vfm_ransac_ortho"][i]
+                        results[f"{key}_icp"] = precomputed["vfm_ransac_icp"][i]
+                    else:
+                        results[key] = precomputed["vfm_ransac_raw"][i]
+                        results[f"{key}_icp"] = None
+                    continue
+                results[key], results[f"{key}_icp"] = self.ransac_registration(
+                    local_map, point_cloud, method, run_icp
+                )
+            tic("ransac")
+            print(f'{"--- TEASER ---":-^80}')
+            for method, run_icp in self.methods_teaser:
+                key = f"{method}_teaser"
+                results[key], results[f"{key}_icp"] = self.teaser_registration(
+                    local_map, point_cloud, method, run_icp
+                )
+            tic("teaser")
+            print(f'{"--- Vanilla ICP ---":-^80}')
+            if precomputed is not None:
+                results["icp"] = precomputed["icp"][i]
+            else:
+                results["icp"] = self.icp_registration(local_map, point_cloud[:, :3], dist=7, two_phase=True)
+            tic("vanilla_icp")
+
+            # Errors (`:935-954`).
+            print("=" * 80)
+            print(f"Scene: {self.scene_idx + 1}/{n_scenes} ({label}) | {i + 1}/{len(scene['scene_poses'])}")
+            print_msg(gt_pose, "GT pose")
+            print_msg(initial_pose, "Initial guess")
+            print("-" * 80)
+            for k, v in results.items():
+                if v is None:
+                    continue
+                v = v @ initial_pose
+                rte, rre = self.compute_errors(gt_pose, v, k)
+                print_msg(v, k, color="green" if (rte < 0.3 and rre < 15) else None)
+            print("-" * 80)
+            print(f"Points in map: {local_map.shape}")
+            print("=" * 80)
+            tic("errors")
+
+        self.scene_idx += 1
+        # The cached maps (host arrays and device grids) are per scene.
+        self._hash_map_cache.clear()
+        self._print_summary()
+        tic("errors")
+
+    # ------------------------------------------------------------------ metrics
+    def compute_errors(self, pose, gt_pose, method: str) -> Tuple[float, float]:
+        """Geodesic RRE / L2 RTE, accumulated per method
+        (`registration_node.py:997-1019`; called as (gt_pose, estimate, name))."""
+        R = pose[:3, :3]
+        R_gt = gt_pose[:3, :3]
+        rot_error = abs(np.arccos(min(max(((R.T @ R_gt).trace() - 1) / 2, -1.0), 1.0)))
+        rot_error = float(np.rad2deg(rot_error))
+        trans_error = float(np.linalg.norm(pose[:3, 3] - gt_pose[:3, 3]))
+        self.rot_errors.setdefault(method, []).append(rot_error)
+        self.trans_errors.setdefault(method, []).append(trans_error)
+        return trans_error, rot_error
+
+    def compute_success_rate(self, method, translation_threshold, rotation_threshold) -> float:
+        return success_rate(
+            self.trans_errors[method], self.rot_errors[method],
+            translation_threshold, rotation_threshold,
+        )
+
+    def _print_summary(self):
+        print("=" * 80)
+        for method, rot_error in self.rot_errors.items():
+            print(
+                f"Rotation error ({method:<20}): "
+                f"{np.mean(rot_error):.3f} ± {np.std(rot_error):.3f}"
+            )
+        print("-" * 80)
+        for method, trans_error in self.trans_errors.items():
+            print(
+                f"Translat error ({method:<20}): "
+                f"{np.mean(trans_error):.3f} ± {np.std(trans_error):.3f}"
+            )
+        print("-" * 80)
+        header = f"{'':<20}: "
+        for t in THRESHOLDS:
+            header += f"{t[0]:>3}, {t[1]:<3} | "
+        print(header[:-2])
+        for method in self.rot_errors.keys():
+            row = f"{method:<20}: "
+            for t in THRESHOLDS:
+                row += f"{100 * self.compute_success_rate(method, *t):>8.2f} | "
+            print(row[:-2])
+        print("-" * 80)
+        if self.points_in_map:
+            print(f"Points in map: {np.mean(self.points_in_map)}")
+        print("=" * 80)
+
+    def dump_errors(self, error_file: Path):
+        """The pickle of `registration_node.py:1092-1100`."""
+        error_file = Path(error_file)
+        error_file.parent.mkdir(exist_ok=True, parents=True)
+        with open(error_file, "wb") as f:
+            pickle.dump(
+                {
+                    "rot": self.rot_errors,
+                    "trans": self.trans_errors,
+                    "points_in_map": self.points_in_map,
+                },
+                f,
+            )
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
-    scene, local_map, _ = make_synthetic_scene(3, 32768, 2048, 24, seed=0)
-    res = precompute_scene_batched(scene, local_map, device=dev)
-    print(f"corr_counts: {res['corr_counts']}  snap_counts: {res['snap_counts']}  "
-          f"retried: {res['retried']}  GN iterations: {res['stats']['iterations']}")
-    print(format_recall_table(recall_table(method_errors(res))))
+    """The reference's CLI (`registration_node.py:1522-1595`) on a folder of
+    `scene_*.h5`, plus `--device`: every scene, the average time per step,
+    and the errors pickled to FOLDER/errors_<date>/mode.pkl."""
+    def signal_handler(sig, frame):
+        print("Manual termination triggered")
+        sys.exit(0)
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("folder", type=str)
+    parser.add_argument("--interactive", action="store_true", help="Pauses after each scene.")
+    parser.add_argument("--cluster-removal-sweep", action="store_true",
+                        help="The 0..100%% cluster-removal sweep (not ported: ROADMAP A15)")
+    parser.add_argument("--dump-viz", type=str, default=None, metavar="DIR",
+                        help="Per-scan visualization PLYs (not ported: ROADMAP A9b)")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    if args.cluster_removal_sweep:
+        raise _not_ported("--cluster-removal-sweep", "A15")
+    if args.dump_viz:
+        raise _not_ported("--dump-viz", "A9b")
+    signal.signal(signal.SIGINT, signal_handler)
+
+    datetime_now = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    data_dir = Path(args.folder)
+    node = RegistrationNode(data_dir, args.interactive, 0, None, device=args.device)
+    times = []
+    while not node.stop_publishing:
+        start = time.time()
+        node.make_step()
+        times.append(time.time() - start)
+        avg = np.mean(times)
+        remaining = (len(node.filenames) - node.scene_idx) * avg
+        print(
+            f"\033[93m Average time per step: {avg:.3f} s | "
+            f"Remaining: {remaining // 3600}h {(remaining % 3600) // 60}min \033[0m"
+        )
+        if args.interactive and not node.stop_publishing:
+            input("Press Enter to continue with next scene...\n")
+    node.dump_errors(data_dir / f"errors_{datetime_now}" / "mode.pkl")
 
 
 if __name__ == "__main__":

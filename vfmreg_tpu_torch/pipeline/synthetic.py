@@ -8,6 +8,12 @@ returns), with the stored GT poses carrying a release GT's 0.2-0.5 m /
 0.5-2 deg noise. It also returns each scan's true pose (a translation to its
 region's centre), which the copy in `bench.py` drops.
 
+`scene_file_layout` puts that scene in the layout of a processed scene file
+for `RegistrationNode.run_scene`. Run as a script to register a small
+synthetic scene through the batched method row and print the recall table:
+
+    python -m vfmreg_tpu_torch.pipeline.synthetic [--device cpu]
+
 `SyntheticCameraRig` and `make_rig_cloud` feed the descriptor pass
 (`pipeline/prepare_scenes.create_descriptors`): five seeded camera images per
 cloud and their projections, in place of a dataset sequence.
@@ -15,8 +21,9 @@ cloud and their projections, in place of a dataset sequence.
 
 from __future__ import annotations
 
+import argparse
 import zlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -62,6 +69,44 @@ def make_synthetic_scene(
         true_poses.append(T)
     scene = {"scene_poses": scene_poses, "scene_point_clouds": scene_clouds}
     return scene, local_map, np.stack(true_poses)
+
+
+def _positive_descriptors(cloud: np.ndarray) -> np.ndarray:
+    """The rows whose descriptor sum is not positive, negated. The driver's
+    map accumulation drops such rows as points without a descriptor
+    (`RegistrationNode._accumulate_map`); a negated row sums to exactly
+    minus the sum (negation is exact at every rounding step)."""
+    flip = np.sum(cloud[:, 3:], axis=1) <= 0
+    out = cloud.copy()
+    out[flip, 3:] = -out[flip, 3:]
+    return out
+
+
+def scene_file_layout(scene: Dict, local_map: np.ndarray) -> Dict:
+    """`make_synthetic_scene`'s output in the layout of a processed scene
+    file (`data.h5io.read_scenes`): "map_point_clouds" / "map_poses" (the
+    map split at x = 0 into two map clouds), "map_clip" (empty),
+    "scene_point_clouds" / "scene_poses".
+
+    `sin(p W 0.1)` descriptors sum to a negative for about half the points,
+    which the driver's map accumulation drops; so every descriptor row whose
+    sum is not positive is negated, in the map and in the scans alike (a
+    scan row is a copy of its map row, so each pair keeps its cosine).
+
+    The map clouds are posed at the identity: a cloud in a frame of its own
+    is voxelized there first, and a frame offset moves the 0.25 m voxel
+    boundaries (truncation makes the voxel at 0 twice as wide), so the
+    accumulated map would no longer hold one point per occupied 0.25 m
+    voxel of the world map."""
+    mp = _positive_descriptors(local_map)
+    left = mp[:, 0] < 0
+    return {
+        "map_poses": [np.eye(4), np.eye(4)],
+        "map_point_clouds": [mp[left], mp[~left]],
+        "map_clip": [],
+        "scene_poses": [np.asarray(p, dtype=np.float64) for p in scene["scene_poses"]],
+        "scene_point_clouds": [_positive_descriptors(c) for c in scene["scene_point_clouds"]],
+    }
 
 
 class SyntheticCameraRig:
@@ -148,3 +193,24 @@ def make_rig_cloud(n: int, seed: int = 0) -> np.ndarray:
     yaw = rng.uniform(0.0, 2.0 * np.pi, n)
     z = np.r_[-1.7 + rng.normal(0.0, 0.03, n_ground), rng.uniform(-1.7, 6.0, n - n_ground)]
     return np.c_[r * np.cos(yaw), r * np.sin(yaw), z].astype(np.float32)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """Register a small synthetic scene through the batched method row and
+    print the recall table."""
+    from vfmreg_tpu_torch.pipeline import registration_node as rn
+    from vfmreg_tpu_torch.utils.device import resolve_device
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    scene, local_map, _ = make_synthetic_scene(3, 32768, 2048, 24, seed=0)
+    res = rn.precompute_scene_batched(scene, local_map, device=dev)
+    print(f"corr_counts: {res['corr_counts']}  snap_counts: {res['snap_counts']}  "
+          f"retried: {res['retried']}  GN iterations: {res['stats']['iterations']}")
+    print(rn.format_recall_table(rn.recall_table(rn.method_errors(res))))
+
+
+if __name__ == "__main__":
+    main()

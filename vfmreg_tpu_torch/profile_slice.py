@@ -1,13 +1,16 @@
 """Where a path of the port spends its time on the card.
 
-    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|descriptor]
+    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|node|descriptor]
         [--reps N] [--steps-per-read 1,4,16]
 
 Builds the same full-width inputs as `chip_smoke.py` for the path, seed 0:
-the scan-to-map slice or the evaluation driver's method row
+the scan-to-map slice, the evaluation driver's method row
 (`pipeline.registration_node.precompute_scene_batched` on
-`pipeline.synthetic`'s scene), each B = 8 scans x 16,384 points against a
-524,288-point map with 384-d descriptors; or the descriptor pass
+`pipeline.synthetic`'s scene), or the scene loop around it
+(`RegistrationNode.run_scene`, batched, with the vfm RANSAC and TEASER
+columns, on that scene in a scene file's layout), each B = 8 scans x
+16,384 points against a 524,288-point map with 384-d descriptors; or the
+descriptor pass
 (`pipeline.prepare_scenes.create_descriptors` at ViT-S/14 with random
 seeded weights, 8 clouds x 16,384 points, 40 rig images of 1232 x 1616).
 It warms up once, then prints JSON lines:
@@ -18,7 +21,8 @@ It warms up once, then prints JSON lines:
   of each ICP row and, per ICP row, its loop's kernel B2 step calls, device
   reads, kernel B3 launches and per-lane iterations and rebuilds; with
   `--steps-per-read 1,4,16` one such line per value of
-  `registration.icp.GN_STEPS_PER_READ`, the values run in turns; descriptor: the
+  `registration.icp.GN_STEPS_PER_READ`, the values run in turns; node: the
+  node's own stage clock and the kernels' launches per scene; descriptor: the
   whole pass, then its images and its ViT features timed apart, and the
   rest, projection, sampling and dedupe, as the difference);
 * `profile`: one call without the profiler, timed on the host clock
@@ -33,7 +37,10 @@ It warms up once, then prints JSON lines:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import tempfile
 import time
 
 import torch
@@ -41,11 +48,17 @@ from torch.autograd import DeviceType
 
 from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator
 from vfmreg_tpu_torch.models.vit import PRESETS
+from vfmreg_tpu_torch.ops import _build
 from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
 from vfmreg_tpu_torch.ops.matching import get_vfm_correspondences_batched
 from vfmreg_tpu_torch.pipeline import registration_node as rn
 from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
-from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud, make_synthetic_scene
+from vfmreg_tpu_torch.pipeline.synthetic import (
+    SyntheticCameraRig,
+    make_rig_cloud,
+    make_synthetic_scene,
+    scene_file_layout,
+)
 from vfmreg_tpu_torch.registration import icp
 from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
 from vfmreg_tpu_torch.scan_to_map import (
@@ -106,6 +119,32 @@ def _driver(reps, dev, steps_per_read):
     return run
 
 
+def _node(reps, dev):
+    """The scene loop's stage clock over `reps` runs of `run_scene`; returns
+    one run. The node's printing goes to a buffer."""
+    scene, local_map, _ = make_synthetic_scene(8, 524288, 16384, 384, seed=0)
+    layout = scene_file_layout(scene, local_map)
+    with tempfile.TemporaryDirectory() as empty, contextlib.redirect_stdout(io.StringIO()):
+        node = rn.RegistrationNode(empty, device=dev, methods_ransac=[("vfm", True)],
+                                   methods_teaser=[("vfm", True)], methods_pointdsc=[])
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            node.run_scene(layout)
+
+    run()  # warm-up
+    acc = {}
+    for _ in range(reps):
+        _build.reset_launches()
+        run()
+        for key, v in node.stage_seconds.items():
+            acc[key] = acc.get(key, 0.0) + v
+    print(json.dumps({"stages": acc, "total": sum(acc.values()), "launches_per_scene": dict(_build.LAUNCHES),
+                      "serial_vfm_searches_per_scene": node.vfm_searches // (reps + 1), "reps": reps,
+                      "device": torch.cuda.get_device_name(0)}))
+    return run
+
+
 def _descriptor(reps, dev):
     """The descriptor pass's stages over `reps` runs; returns one pass."""
     gen = ImageFeatureGenerator("dinov2", config=PRESETS["dinov2_vits14"], seed=0, device=dev)
@@ -131,7 +170,7 @@ def _descriptor(reps, dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=["slice", "driver", "descriptor"], default="slice")
+    ap.add_argument("--path", choices=["slice", "driver", "node", "descriptor"], default="slice")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--steps-per-read", default="",
@@ -145,6 +184,9 @@ def main(argv=None):
         steps = [int(k) for k in args.steps_per_read.split(",")] if args.steps_per_read else [
             icp.GN_STEPS_PER_READ]
         _profile(_driver(args.reps, dev, steps), args.top)
+        return
+    if args.path == "node":
+        _profile(_node(args.reps, dev), args.top)
         return
     if args.path == "descriptor":
         _profile(_descriptor(args.reps, dev), args.top)

@@ -5,7 +5,7 @@ Counterpart of the scan-to-map parts of `vfmreg_tpu/registration/icp.py`:
 `gn_step` (`:141`), `geometric_icp_loop` (`:159`) with the reference's
 "planes" champion rebuild on every path (kernel B3), and the entry point
 `register_frame_icp_stats` (`:478`, through `_register_frame_icp_state`,
-`:396`; the reference's `register_frame_icp`, `:443`, is its `.pose`).
+`:396`) and `register_frame_icp` (`:443`, its `.pose`).
 
 The reference runs the B lanes of a row under `vmap`: one device loop,
 masked carries, a converged lane idling bit-exactly while the others finish.
@@ -29,7 +29,8 @@ run, and `geometric_icp_loop` is the B = 1 call.
 from __future__ import annotations
 
 import collections
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+import contextlib
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +68,24 @@ REFRESH_INTERVAL = 16
 # needs a rebuild or a gather waits for the read; more steps per read mean
 # fewer reads and more idle step calls (PERF.md compares 1, 4 and 16).
 GN_STEPS_PER_READ = 4
+
+# The open `recording_loops` blocks' logs.
+_LOOP_LOGS: List[List[dict]] = []
+
+
+@contextlib.contextmanager
+def recording_loops():
+    """A list that collects, for every call of `geometric_icp_loop_lanes`
+    made inside the block, its lanes' GN iterations and rebuilds and the
+    loop's counts: a driver of a whole pipeline (`chip_smoke.py`) holds
+    every ICP loop it ran against the kernels' launch counts."""
+    log: List[dict] = []
+    _LOOP_LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOOP_LOGS[:] = [other for other in _LOOP_LOGS if other is not log]
+
 
 _f32 = np.float32
 _Z = np.float32(0.0)  # f32 start value of the unrolled sums
@@ -207,7 +226,9 @@ def geometric_icp_loop_lanes(
     source = source0.to(f32).contiguous().clone()  # moved in place
     mask = mask.contiguous()
     center = center.to(dev, f32).contiguous()
-    d2c = torch.sum(torch.square(source - center[:, None]), dim=-1)
+    d = source - center[:, None]
+    # Elementwise, so that a lane's lever arm does not depend on its row's width.
+    d2c = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
     r_max = torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0), dim=1))
     slack = float(np.float32(0.5) * np.float32(grid.voxel_size))
     st = new_gn_lanes(torch.as_tensor(T_icp0), it0, max_iterations, r_max, slack, n)
@@ -256,6 +277,9 @@ def geometric_icp_loop_lanes(
         loop["reads"] += 1
     T_icp = st.T.cpu()
     loop["reads"] += 1
+    for log in _LOOP_LOGS:
+        log.append({"iterations": (ints[:, IT] - np.broadcast_to(it0, (b,))).tolist(),
+                    "rebuilds": ints[:, REBUILDS].tolist(), "loop": dict(loop)})
     return ICPLanes(source, T_icp, ints[:, IT].astype(np.int64), ints[:, DONE] != 0,
                     ints[:, CONF] != 0, ints[:, REBUILDS].astype(np.int64), loop)
 
@@ -325,15 +349,23 @@ def register_frames_icp_stats(
     champion rebuilds. Each lane's GN solve is centred on the mean of its
     guess-transformed source; the centres and lever arms stay on the device.
     A run resumed from a returned pose continues the same trajectory up to
-    that re-centring."""
+    that re-centring.
+
+    The transform and the centre of a lane are computed on its own valid
+    points, lane by lane: a batched product, or a sum over a padded row,
+    rounds otherwise on the card as the row's width changes, and a lane
+    must give what its own one-lane run gives (the driver's serial and
+    batched rows are held equal). Padding rows stay zero; no step reads them."""
     points = points.to(torch.float32)
     b = points.shape[0]
     guesses = torch.as_tensor(initial_guesses).to("cpu", torch.float32)
     on_dev = guesses.to(points.device)
-    # Lane by lane: a batched product rounds otherwise than the per-lane one.
-    source0 = torch.stack([transform_points(points[j], on_dev[j]) for j in range(b)])
-    denom = torch.clamp(mask.sum(dim=1), min=1)
-    center = torch.where(mask[..., None], source0, 0.0).sum(dim=1) / denom[:, None]
+    source0 = torch.zeros_like(points)
+    center = torch.zeros((b, 3), dtype=torch.float32, device=points.device)
+    for j in range(b):
+        moved = transform_points(points[j][mask[j]], on_dev[j])
+        source0[j][mask[j]] = moved
+        center[j] = moved.sum(dim=0) / max(moved.shape[0], 1)
     eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
     r = geometric_icp_loop_lanes(
         grid, source0, mask, eye, center, max_correspondence_distance, kernel, max_iterations,
@@ -341,6 +373,22 @@ def register_frames_icp_stats(
     )
     poses = torch.stack([r.T_icp[j] @ guesses[j] for j in range(b)])
     return BatchedICP(poses, r.it, r.done | r.confirmed, r.rebuilds, r.loop)
+
+
+def register_frame_icp(
+    grid: HashGrid,
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    initial_guess,
+    max_correspondence_distance: float,
+    kernel: float,
+    max_iterations: int = MAX_NUM_ITERATIONS,
+) -> torch.Tensor:
+    """KISS-ICP `RegisterFrame` for one scan's 3D points (reference
+    `register_frame_icp`, `vfmreg_tpu/registration/icp.py:443`): the pose
+    [4, 4] (host f32) of `register_frame_icp_stats`."""
+    return register_frame_icp_stats(grid, points, mask, initial_guess, max_correspondence_distance,
+                                    kernel, max_iterations).pose
 
 
 def register_frame_icp_stats(

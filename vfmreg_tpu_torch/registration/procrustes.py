@@ -123,14 +123,33 @@ def rotation_horn(H: torch.Tensor) -> torch.Tensor:
     return _quat_to_matrix(q)
 
 
+def matvec3(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M [..., 3, 3] times v [..., 3], elementwise: ((M_i0 v_0 + M_i1 v_1) +
+    M_i2 v_2). A product or a reduction over a small axis can round
+    otherwise as the leading axes grow; elementwise operations cannot, so a
+    hypothesis scores the same in a batch of any size."""
+    return (M[..., 0] * v[..., None, 0] + M[..., 1] * v[..., None, 1]) + M[..., 2] * v[..., None, 2]
+
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_i a_i b_i over the last axis of 3, elementwise (see `matvec3`)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
 def kabsch_horn(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     """`kabsch` with the Horn / Jacobi rotation core, unweighted (the RANSAC
-    minimal sample). src/tgt: [..., N, 3] -> [..., 4, 4]."""
-    c_src = torch.mean(src, dim=-2)
-    c_tgt = torch.mean(tgt, dim=-2)
+    minimal sample). src/tgt: [..., N, 3] -> [..., 4, 4]. Every sum is
+    written out over the N points in ascending order (see `matvec3`)."""
+    n = src.shape[-2]
+    s_sum, t_sum = src[..., 0, :], tgt[..., 0, :]
+    for i in range(1, n):
+        s_sum, t_sum = s_sum + src[..., i, :], t_sum + tgt[..., i, :]
+    c_src, c_tgt = s_sum / n, t_sum / n
     src_c = src - c_src[..., None, :]
     tgt_c = tgt - c_tgt[..., None, :]
-    H = src_c.transpose(-1, -2) @ tgt_c
+    H = src_c[..., 0, :, None] * tgt_c[..., 0, None, :]
+    for i in range(1, n):
+        H = H + src_c[..., i, :, None] * tgt_c[..., i, None, :]
     R = rotation_horn(H)
-    t = c_tgt - (R @ c_src[..., None])[..., 0]
+    t = c_tgt - matvec3(R, c_src)
     return _assemble(R, t)

@@ -38,8 +38,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from vfmreg_tpu_torch.ops.matching import _chunked_argmin_l2
-from vfmreg_tpu_torch.registration.procrustes import kabsch_horn
+from vfmreg_tpu_torch.ops.matching import _chunked_argmin_l2, _sq3
+from vfmreg_tpu_torch.registration.procrustes import dot3, kabsch_horn, matvec3
 
 _BLOCK = 1024  # the reference's hypothesis block, which fixes its padding
 RANSAC_N = 3  # points per hypothesis
@@ -85,13 +85,27 @@ def ransac_batched(
     order = torch.sort((~mask).to(torch.int32), dim=1, stable=True).indices
     src_s = torch.gather(src, 1, order[..., None].expand(-1, -1, 3))
     tgt_s = torch.gather(tgt, 1, order[..., None].expand(-1, -1, 3))
-    mask_s = torch.gather(mask, 1, order)
     true_count = mask.sum(dim=1)
     valid_count = torch.clamp(true_count, min=1)
+    counts = true_count.tolist()
 
-    # Centred coordinates (the pose is conjugated back at the end).
-    m3 = mask_s[..., None]
-    c = torch.where(m3, src_s, 0.0).sum(dim=1) / valid_count[:, None]
+    # Per scan, over its own valid rows only: the centre (the pose is
+    # conjugated back at the end) and the sufficient statistics (one pass
+    # over the correspondences). A sum over a padded or batched row would
+    # round otherwise on the card as B or N change, and a near-tied winner
+    # with it; this way a scan scores as it does alone.
+    c = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    a_vec, g_vec = torch.zeros_like(c), torch.zeros_like(c)  # sum m s, sum m g (centred)
+    s_ss = torch.zeros(b, dtype=torch.float32, device=dev)
+    s_tt = torch.zeros_like(s_ss)
+    A_cov = torch.zeros((b, 3, 3), dtype=torch.float32, device=dev)  # sum_n g_n s_n^T
+    for j, n_j in enumerate(counts):
+        sj, tj = src_s[j, :n_j], tgt_s[j, :n_j]
+        c[j] = sj.sum(dim=0) / max(n_j, 1)
+        sm, tm = sj - c[j], tj - c[j]
+        a_vec[j], g_vec[j] = sm.sum(dim=0), tm.sum(dim=0)
+        s_ss[j], s_tt[j] = torch.sum(sm * sm), torch.sum(tm * tm)
+        A_cov[j] = tm.T @ sm
     src_c = src_s - c[:, None, :]
     tgt_c = tgt_s - c[:, None, :]
 
@@ -105,28 +119,24 @@ def ransac_batched(
         picks = torch.cat([picks, picks.new_zeros((b, pad, RANSAC_N))], dim=1)
     k = picks.shape[1]
 
-    # Sufficient statistics (one pass over the correspondences).
-    denom = torch.clamp(mask_s.sum(dim=1).to(torch.float32), min=1.0)  # [B]
-    sm = torch.where(m3, src_c, 0.0)
-    tm = torch.where(m3, tgt_c, 0.0)
-    a_vec = sm.sum(dim=1)  # [B, 3]
-    g_vec = tm.sum(dim=1)
-    s_ss = torch.sum(sm * sm, dim=(1, 2))
-    s_tt = torch.sum(tm * tm, dim=(1, 2))
-    A_cov = tm.transpose(1, 2) @ sm  # [B, 3, 3]: sum_n g_n s_n^T
-
+    denom = valid_count.to(torch.float32)  # [B]
     flat = picks.reshape(b, k * RANSAC_N)
     tri_src = torch.gather(src_c, 1, flat[..., None].expand(-1, -1, 3)).reshape(b, k, RANSAC_N, 3)
     tri_tgt = torch.gather(tgt_c, 1, flat[..., None].expand(-1, -1, 3)).reshape(b, k, RANSAC_N, 3)
     T = kabsch_horn(tri_src, tri_tgt)  # [B, K, 4, 4]
     R = T[..., :3, :3]
     t = T[..., :3, 3]
+    # <A, R>_F over the nine entries in row-major order, elementwise.
+    A = A_cov[:, None]
+    RA = R[..., 0, 0] * A[..., 0, 0]
+    for e in range(1, 9):
+        RA = RA + R[..., e // 3, e % 3] * A[..., e // 3, e % 3]
     mse = (
         s_ss[:, None] + s_tt[:, None]
-        + denom[:, None] * torch.sum(t * t, dim=-1)
-        + 2.0 * torch.sum(t * (R @ a_vec[:, None, :, None])[..., 0], dim=-1)
-        - 2.0 * torch.sum(R * A_cov[:, None], dim=(-1, -2))
-        - 2.0 * torch.sum(t * g_vec[:, None, :], dim=-1)
+        + denom[:, None] * dot3(t, t)
+        + 2.0 * dot3(t, matvec3(R, a_vec[:, None]))
+        - 2.0 * RA
+        - 2.0 * dot3(t, g_vec[:, None])
     ) / denom[:, None]
     finite = torch.all(torch.isfinite(T.reshape(b, k, 16)), dim=-1)
     mse = torch.where(finite & ~torch.isnan(mse), mse, float("inf"))
@@ -136,8 +146,7 @@ def ransac_batched(
     best_T = torch.gather(T, 1, j[:, None, None, None].expand(-1, 1, 4, 4))[:, 0]
 
     # Un-centre: T_world = Trans(c) @ T_c @ Trans(-c).
-    Rb = best_T[:, :3, :3]
-    best_T[:, :3, 3] = best_T[:, :3, 3] + c - (Rb @ c[..., None])[..., 0]
+    best_T[:, :3, 3] = best_T[:, :3, 3] + c - matvec3(best_T[:, :3, :3], c)
     # Zero valid correspondences read as failure, not as a perfect fit.
     any_valid = true_count > 0
     eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
@@ -179,15 +188,24 @@ def snap_correspondences(
     The -2ab expansion cancels at world-scale coordinates, so the search runs
     on clouds centred on the correspondence mean (one shift per scan keeps
     every distance), and the gate uses the distance to the gathered point
-    computed directly. Returns (snapped_src, snapped_tgt, new_mask)."""
-    n_src = torch.clamp(mask.sum(dim=-1).to(torch.float32), min=1.0)
-    c = torch.where(mask[..., None], src, 0.0).sum(dim=-2) / n_src[..., None]
-    cc = c[..., None, :]
+    computed directly. Returns (snapped_src, snapped_tgt, new_mask).
+
+    Each set's shift is the mean of its own valid rows, summed set by set:
+    a sum over a padded or batched row rounds otherwise on the card, and the
+    shift's bits decide near-ties of the search, so a scan snaps the same
+    alone or in a batch."""
+    lead = mask.shape[:-1]
+    flat_src, flat_mask = src.reshape(-1, *src.shape[-2:]), mask.reshape(-1, mask.shape[-1])
+    c = torch.zeros((flat_src.shape[0], 3), dtype=src.dtype, device=src.device)
+    for j in range(flat_src.shape[0]):
+        valid = flat_src[j][flat_mask[j]]
+        c[j] = valid.sum(dim=0) / max(valid.shape[0], 1)
+    cc = c.reshape(*lead, 1, 3)
     _, idx_s = _chunked_argmin_l2(src - cc, scan_points - cc, scan_mask, _SNAP_CHUNK)
     _, idx_t = _chunked_argmin_l2(tgt - cc, map_points - cc, map_mask, _SNAP_CHUNK)
     snapped_src = torch.gather(scan_points, -2, idx_s[..., None].expand(idx_s.shape + (3,)))
     snapped_tgt = map_points[idx_t]
-    d_s = torch.linalg.vector_norm(src - snapped_src, dim=-1)
-    d_t = torch.linalg.vector_norm(tgt - snapped_tgt, dim=-1)
+    d_s = torch.sqrt(_sq3(src - snapped_src))
+    d_t = torch.sqrt(_sq3(tgt - snapped_tgt))
     ok = mask & (d_s < SNAP_TOLERANCE) & (d_t < SNAP_TOLERANCE)
     return snapped_src, snapped_tgt, ok
