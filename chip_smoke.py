@@ -12,7 +12,8 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives four paths. The first three run B1-B3:
+one-lane entries), and drives six paths. The first three run B1-B3, the
+odometry B2 and B3:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -39,6 +40,21 @@ one-lane entries), and drives four paths. The first three run B1-B3:
   = batched (GT and vanilla ICP bit for bit, RANSAC within 2e-3), B1-B3
   checked at the serial column's shapes, and `register_frame`'s VFM branch
   on one full-width scan gated against its true pose;
+* odometry: KISS odometry (`kiss.kiss_icp.KissICP`, the default config:
+  100 m range, 1 m voxels, 20 points a voxel, the map resident on the card)
+  over a 200-frame drive of `pipeline.synthetic.SyntheticDrive` (122,880
+  points a frame, a KITTI HDL-64E sweep, 2 cm range noise; 1 m a frame,
+  up to 2 deg of yaw; ground, facades, poles and boxes; seed 0): every
+  frame's pose against the truth, the resident map against the same poses
+  replayed into a host-side map (the same rows in the same order every 50
+  frames), B2 and B3 checked at the last frame's shapes, per-stage seconds
+  per frame (a synchronize after each stage), then fresh free-running runs
+  of the first 40 frames (one synchronize at the end; with the map's
+  lagged point count and with a synchronize after every update, in turns)
+  and the idle share of such a run; then
+  odometry_xd, the first 20 frames with 384-d descriptor columns through
+  the XD path (cosine-weighted champions, plain PyTorch on the card, no
+  kernel launch), every pose gated;
 * descriptor: the DINOv2 descriptor pass at ViT-S/14 full width (384
   wide, 12 layers, 6 heads of 64) with random weights from a seeded
   generator (no checkpoint is in the repository), over 8 clouds of 16,384
@@ -53,9 +69,9 @@ Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path was launched as often as
 the path's own counts say: B1 at least once (in the node, once per serial
 correspondence search besides), B2 once per step call of the ICP loops
-(each call steps every live lane of a row; in the node, summed over every
-ICP loop the scene ran, `registration.icp.recording_loops`), B3 once per rebuild
-round, B5 12 times per image. Per ICP row it prints the loop's step calls,
+(each call steps every live lane of a row; in the node and the odometry,
+summed over every ICP loop the path ran, `registration.icp.recording_loops`),
+B3 once per rebuild round, B5 12 times per image; odometry_xd launches none. Per ICP row it prints the loop's step calls,
 reads and rebuild rounds beside the lanes' iterations and rebuilds, and
 checks them against each other (`loop_check`). No path launches B4 (the ICP
 takes the fused B2); it is checked at the slice's and the driver's champion
@@ -68,7 +84,9 @@ warmup, kernel_check for each kernel on the slice, slice, driver_data,
 kernel_check for each kernel on the driver row, driver, driver_retry,
 driver_rematch, node_data, node_batched, node_serial,
 node_serial_vs_batched, kernel_check for B1-B3 at the node's serial shapes,
-node_register_frame_vfm, kernel_check for B5 at the pass's own q, k, v, at
+node_register_frame_vfm, odometry_data, odometry, kernel_check for B2 and
+B3 at the odometry's shapes, odometry_free, odometry_idle, odometry_xd, kernel_check for B5
+at the pass's own q, k, v, at
 [2, 200, 4, 32] and at T = 320, descriptor), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
 under "paths"), the card's name and power limit, and last
@@ -119,6 +137,15 @@ GN_SRC_ULPS = 2
 ATTN_ATOL, DESC_COS = 2e-5, 0.9999
 # Descriptor pass: ViT-S/14 (vit.py PRESETS["dinov2_vits14"]), 12 blocks.
 VIT_PRESET, VIT_LAYERS = "dinov2_vits14", 12
+# Odometry phase: a drive of ODO_FRAMES KITTI-sized sweeps (122,880 points,
+# an HDL-64E sweep); the resident map checked against a host-side replay
+# every ODO_CHECK_EVERY frames; the idle share over a fresh run of the first
+# ODO_IDLE_FRAMES; the descriptor (XD) run over the first ODO_XD_FRAMES.
+ODO_FRAMES, ODO_POINTS, ODO_CHECK_EVERY, ODO_IDLE_FRAMES, ODO_XD_FRAMES = 200, 122880, 50, 40, 20
+# Odometry pose gate, every frame's pose against the truth: about twice what
+# the 200-frame drive reads with its 2 cm range noise (max RTE 0.052 m, RRE
+# 0.031 deg; H100 80GB HBM3, 700 W), well inside the recall gate above.
+ODO_RTE_GATE_M, ODO_RRE_GATE_DEG = 0.1, 0.1
 # Published peaks of an H100 (NVIDIA data sheet, dense, SXM at 700 W): HBM
 # rate, f32 CUDA-core rate and TF32 tensor-core rate. The PCIe card is
 # slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
@@ -1077,6 +1104,194 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     return runs["batched"]["launches"]
 
 
+def drive_odometry(dev, peaks, rows):
+    """The odometry phase: `KissICP` with the default config (the map
+    resident on the card) over ODO_FRAMES frames of
+    `pipeline.synthetic.SyntheticDrive`, counted and timed by stage
+    (`profile_slice.run_odometry`); gated on every frame's pose against the
+    truth, on the resident map's rows against the same poses replayed into a
+    host-side map (bit for bit, at every ODO_CHECK_EVERY-th frame), and on
+    B2 launches = step calls and B3 launches = rebuild rounds summed over the
+    frames. Then B2 and B3 checked at the odometry's shapes (the last
+    frame's source at its pose against the final map), then fresh
+    free-running runs of the first ODO_IDLE_FRAMES frames
+    (`profile_slice.odometry_wall`), their poses gated, and the device idle
+    share of one. Returns (the run's launches, the drive)."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.config import load_config
+    from vfmreg_tpu_torch.geometry.metrics import absolute_trajectory_error, compute_errors, seq_error
+    from vfmreg_tpu_torch.kiss.kiss_icp import KissICP
+    from vfmreg_tpu_torch.kiss.mapping import VoxelHashMap
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticDrive
+    from vfmreg_tpu_torch.profile_slice import odometry_stats, odometry_wall, profile_run, run_odometry
+    from vfmreg_tpu_torch.registration import icp
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
+
+    t0 = time.perf_counter()
+    drive = SyntheticDrive(n_frames=ODO_FRAMES, n_points=ODO_POINTS, seed=SEED)
+    config = load_config(None)
+    emit({"phase": "odometry_data", "seconds": time.perf_counter() - t0, "world_points": int(drive.world.shape[0]),
+          "frames": ODO_FRAMES, "points_per_frame": ODO_POINTS, "config": dataclasses.asdict(config)})
+
+    kiss = KissICP(config, device=dev)
+    if not kiss.local_map.device_resident:
+        raise RuntimeError("odometry: the map is not resident on the card")
+    snapshots, counts = {}, []
+
+    def after_frame(i):
+        counts.append(int(kiss.local_map.device_grid().valid.sum()))
+        if (i + 1) % ODO_CHECK_EVERY == 0:
+            snapshots[i] = kiss.local_map.point_cloud()
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with icp.recording_loops() as calls:
+        frame_rows = run_odometry(kiss, drive, range(ODO_FRAMES), after_frame=after_frame)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    poses = kiss.poses
+    errs = [compute_errors(p, t) for p, t in zip(poses, drive.gt_poses)]
+    poses_ok = len(poses) == ODO_FRAMES and all(rte < ODO_RTE_GATE_M and rre < ODO_RRE_GATE_DEG
+                                                for rte, rre in errs)
+    loop = collections.Counter()
+    for c in calls:
+        loop.update(c["loop"])
+    iterations = [i for c in calls for i in c["iterations"]]
+    loops = loop_check(loop, iterations, [k for c in calls for k in c["rebuilds"]], GN_STEPS_PER_READ,
+                       sum(iterations))
+    launches_ok = (launches.get("gn_moments_from_cache", 0) == loop["step_calls"] > 0
+                   and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"] > 0
+                   and not any(c["weighted"] for c in calls) and loops["ok"])
+
+    # The same poses into a host-side map: the same rows in the same order.
+    t1 = time.perf_counter()
+    host = VoxelHashMap(config.mapping.voxel_size, config.data.max_range, config.mapping.max_points_per_voxel,
+                        device=dev, device_resident=False)
+    map_equal = {}
+    for i, pose in enumerate(poses):
+        down = kiss.voxelize(kiss.preprocess(drive[i]))[1]
+        host.update(down, pose)
+        if i in snapshots:
+            map_equal[i + 1] = bool(np.array_equal(host.point_cloud(), snapshots[i]))
+    replay_seconds = time.perf_counter() - t1
+    map_ok = len(map_equal) == ODO_FRAMES // ODO_CHECK_EVERY and all(map_equal.values())
+    ate_rot, ate_trans = absolute_trajectory_error(drive.gt_poses, poses)
+    seq_t, seq_r = seq_error(list(drive.gt_poses), poses)
+    stats = odometry_stats(frame_rows)
+    ok = poses_ok and launches_ok and map_ok
+    slowest = sorted(frame_rows, key=lambda r: -r["total"])[:5]
+    emit({"phase": "odometry", "ok": ok, "seconds": seconds, "frames": ODO_FRAMES, "stages": stats,
+          "frames_per_s": stats["frames_per_s"], "slowest_frames": slowest, "map_rows": {"first": counts[0], "max": max(counts),
+                                                              "last": counts[-1], "every_20": counts[::20]},
+          "max_rte_m": max(e[0] for e in errs), "max_rre_deg": max(e[1] for e in errs),
+          "ate_m": ate_trans, "ate_rad": ate_rot, "seq_error_pct": seq_t, "seq_error_deg_per_m": seq_r,
+          "launches": launches, "icp_loop": loops, "map_equal_host_at_frame": map_equal,
+          "replay_seconds": replay_seconds, "nvidia_smi": nvidia_smi(),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if not ok:
+        bad = [(i, e) for i, e in enumerate(errs) if not (e[0] < ODO_RTE_GATE_M and e[1] < ODO_RRE_GATE_DEG)]
+        raise RuntimeError(f"odometry: poses {poses_ok} (first bad {bad[:5]}), launches {launches_ok} "
+                           f"({launches}, {loops}), map {map_equal}")
+
+    # B3 and B2 at the odometry's shapes: the last frame's 1.5 v source at
+    # its pose against the final map, one lane; the GN kernel's width and
+    # gate are the last frame's.
+    grid = kiss.local_map.device_grid()
+    source = kiss.voxelize(kiss.preprocess(drive[ODO_FRAMES - 1]))[0][:, :3]
+    w = bucket_size(source.shape[0])
+    src = torch.zeros((1, w, 3), device=dev)
+    pose = poses[-1]
+    src[0, : source.shape[0]] = torch.from_numpy((source @ pose[:3, :3].T + pose[:3, 3]).astype(np.float32)).to(dev)
+    mask = (torch.arange(w, device=dev) < source.shape[0])[None]
+    group = champion_group(grid)
+    planes, caches = lane_planes(grid, src, mask, group)
+    rows["champions_from_planes"], champs = check_champions_lanes("odometry", planes, src, mask, group, caches,
+                                                                  peaks)
+    sigma = kiss.adaptive_threshold.get_threshold()
+    rows["gn_moments_from_cache"] = check_gn_lanes("odometry", champs, src, mask, sigma / 3, 3 * sigma, peaks)
+    del planes, caches, champs, grid, kiss
+    torch.cuda.empty_cache()
+
+    # Free-running, as `OdometryPipeline` runs it: fresh runs of the first
+    # frames (read beforehand) with one synchronize at the end, in turns with
+    # the map's lagged point count and with a synchronize after every update
+    # (what a count read at once after each merge would cost); then the idle
+    # share of a free run, on the host clock and under the profiler.
+    frames = [drive[i] for i in range(ODO_IDLE_FRAMES)]
+    walls, free_poses = {"lagged_count": [], "synced_update": []}, []
+    for _ in range(2):
+        for key in walls:
+            run_kiss = KissICP(config, device=dev)
+            walls[key].append(odometry_wall(run_kiss, frames, sync_update=key == "synced_update"))
+            free_poses.append(run_kiss.poses)
+    free_errs = [compute_errors(p, t) for poses_ in free_poses for p, t in zip(poses_, drive.gt_poses)]
+    free_ok = (all(len(p) == ODO_IDLE_FRAMES for p in free_poses)
+               and all(rte < ODO_RTE_GATE_M and rre < ODO_RRE_GATE_DEG for rte, rre in free_errs))
+    emit({"phase": "odometry_free", "ok": free_ok, "frames": ODO_IDLE_FRAMES, "seconds": walls,
+          "frames_per_s": {k: [ODO_IDLE_FRAMES / w for w in v] for k, v in walls.items()},
+          "poses_equal_staged_run": [bool(np.array_equal(np.stack(p), np.stack(poses[:ODO_IDLE_FRAMES])))
+                                     for p in free_poses],
+          "max_rte_m": max(e[0] for e in free_errs), "max_rre_deg": max(e[1] for e in free_errs),
+          "nvidia_smi": nvidia_smi()})
+    if not free_ok:
+        raise RuntimeError(f"odometry_free: poses off the truth ({max(free_errs)})")
+    prof = profile_run(lambda: odometry_wall(KissICP(config, device=dev), frames))
+    emit({"phase": "odometry_idle", "frames": ODO_IDLE_FRAMES, **prof})
+    return launches, drive
+
+
+def drive_odometry_xd(dev):
+    """The odometry_xd phase: `KissICP(use_descriptors=True)` over the
+    drive's first ODO_XD_FRAMES frames with DIM descriptor columns (the
+    reference odometry server's v2 mode: the XD path's cosine-weighted
+    champions, plain PyTorch on the card as the reference computes them
+    outside its kernels), gated on every frame's pose, on no launch of B2 or
+    B3, and on every ICP loop being the weighted one."""
+    import torch
+
+    from vfmreg_tpu_torch.config import load_config
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.kiss.kiss_icp import KissICP
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticDrive
+    from vfmreg_tpu_torch.profile_slice import odometry_stats, run_odometry
+    from vfmreg_tpu_torch.registration import icp
+
+    drive = SyntheticDrive(n_frames=ODO_XD_FRAMES, n_points=ODO_POINTS, d=DIM, seed=SEED)
+    kiss = KissICP(load_config(None), device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with icp.recording_loops() as calls:
+        frame_rows = run_odometry(kiss, drive, range(ODO_XD_FRAMES), use_descriptors=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    errs = [compute_errors(p, t) for p, t in zip(kiss.poses, drive.gt_poses)]
+    poses_ok = len(kiss.poses) == ODO_XD_FRAMES and all(rte < ODO_RTE_GATE_M and rre < ODO_RRE_GATE_DEG
+                                                         for rte, rre in errs)
+    weighted_ok = (len(calls) == ODO_XD_FRAMES - 1 and all(c["weighted"] for c in calls)
+                   and sum(launches.values()) == 0)
+    grid = kiss.local_map.device_grid()
+    stats = odometry_stats(frame_rows)
+    emit({"phase": "odometry_xd", "ok": poses_ok and weighted_ok, "seconds": seconds, "frames": ODO_XD_FRAMES,
+          "dim": DIM, "stages": stats, "frames_per_s": stats["frames_per_s"],
+          "slowest_frames": sorted(frame_rows, key=lambda r: -r["total"])[:3],
+          "map_rows": int(grid.valid.sum()), "map_descriptor_dim": int(grid.feats.shape[1]),
+          "max_rte_m": max(e[0] for e in errs), "max_rre_deg": max(e[1] for e in errs),
+          "launches": launches, "gn_iterations": [i for c in calls for i in c["iterations"]],
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if not (poses_ok and weighted_ok):
+        raise RuntimeError(f"odometry_xd: poses {poses_ok} ({errs}), weighted {weighted_ok} ({launches})")
+    del kiss, grid
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1198,6 +1413,10 @@ def main() -> int:
     rows["node"] = {}
     by_path["node"] = drive_node(dev, peaks, rows["node"], *driver_scene)
     del driver_scene
+    torch.cuda.empty_cache()
+    rows["odometry"] = {}
+    by_path["odometry"], _ = drive_odometry(dev, peaks, rows["odometry"])
+    by_path["odometry_xd"] = drive_odometry_xd(dev)
     torch.cuda.empty_cache()
     rows["descriptor"] = {}
     by_path["descriptor"] = drive_descriptor(dev, peaks, rows["descriptor"])

@@ -12,7 +12,11 @@
   reference's, as `tests/test_torch_driver.py` holds them (the packages
   differ in the order of f32 sums), and the `src_` / `tgt_` return with
   the same number of correspondences;
-* an empty map returns the guess; the XD path raises NotImplementedError.
+* an empty map returns the guess; the XD path (`force_xd`, or a descriptor
+  dim other than `vfm_descriptor_size`) gives the reference's pose within
+  the same 1e-3 m and 1e-2 deg; `update` with descriptors keeps the
+  reference's rows bit for bit (`tests/test_torch_{odometry,xd}.py` hold
+  the rest of the odometry).
 """
 
 import numpy as np
@@ -146,16 +150,21 @@ def test_register_frame_matches_jax(world, path, monkeypatch):
 
 
 def test_register_frame_empty_map_and_xd(world):
-    _, _, tm, scan, _ = world
+    cloud, jm, tm, scan, true = world
     cfg = load_config(None)
     empty = tmapping.get_voxel_hash_map(cfg, device="cpu")
     guess = _pose([1.0, 2.0, 0.0], [0.0, 0.0, 10.0])
     assert np.array_equal(treg.register_frame(scan[:, :3], empty, guess, 6.0, 2 / 3), guess)
     pose, s, t = treg.register_frame(scan, empty, guess, 6.0, 2 / 3, src_=scan[:1, :3], tgt_=scan[:1, :3])
     assert np.array_equal(pose, guess) and s.shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="A10"):
-        treg.register_frame(scan, tm, guess, 6.0, 2 / 3, force_xd=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        treg.register_frame(scan, tm, guess, 6.0, 2 / 3, vfm_descriptor_size=384)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tm.update(scan[:, :3])
+    guess = _pose([2.7, -2.2, 0.0], [0.0, 0.0, 3.5])
+    for kw in ({"force_xd": True}, {"vfm_descriptor_size": 384}):
+        got = treg.register_frame(scan, tm, guess, 6.0, 2 / 3, **kw)
+        _close(got, jreg.register_frame(scan, jm, guess, 6.0, 2 / 3, **kw))
+        assert np.linalg.norm(got[:3, 3] - true[:3, 3]) < 0.1
+    fresh_t = tmapping.VoxelHashMap(1.0, 100.0, device="cpu")
+    fresh_j = jmapping.VoxelHashMap(1.0, 100.0, use_native=False)
+    for m in (fresh_t, fresh_j):
+        m.add_points(cloud)
+        m.update(scan, true)
+    np.testing.assert_array_equal(fresh_t.point_cloud_n(), fresh_j.point_cloud_n())

@@ -6,11 +6,14 @@ built with `nvcc` at first use and bound with `ctypes` (`ops/_build.py`). Every 
 same function, which it runs only for CPU tensors (the tests); for CUDA
 tensors it launches the kernel or raises.
 
-The package imports torch, numpy and the standard library only (`h5py`
-inside `data.h5io`'s functions, where a scene file is read or written).
-Entry points (`scan_to_map.scan_to_map`, `pipeline.registration_node
-.precompute_scene_batched` and `.RegistrationNode`,
-`models.image_features.ImageFeatureGenerator` for
-`pipeline.prepare_scenes.create_descriptors`, `convert.grid_from_numpy`) run
-on the card unless the caller passes `device="cpu"`.
+The package imports torch, numpy, scipy and the standard library (`h5py`
+inside `data.h5io`'s functions, where a scene file is read or written;
+`yaml` inside `config`'s file readers and writers; `matplotlib` inside
+`kiss.eval.plot_trajectories`). Entry points (`scan_to_map.scan_to_map`,
+`pipeline.registration_node.precompute_scene_batched` and
+`.RegistrationNode`, `models.image_features.ImageFeatureGenerator` for
+`pipeline.prepare_scenes.create_descriptors`, `convert.grid_from_numpy`,
+`kiss.KissICP`, `kiss.pipeline.OdometryPipeline` and `kiss.cli`,
+`pipeline.transform_server`) run on the card unless the caller passes
+`device="cpu"`.
 """

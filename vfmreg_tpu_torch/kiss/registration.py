@@ -10,12 +10,14 @@ Counterpart of `vfmreg_tpu/kiss/registration.py:53-189`
   5 m (the full frame below 100 points), cosine matches at 0.8 through
   kernel B1, then `registration.vfm_icp.register_frame_vfm`; with the
   `src_` / `tgt_` sentinels it also returns the surviving correspondences;
+* [N, 3 + D] with `force_xd`, or with D not `vfm_descriptor_size` -> the XD
+  path (`Registration.cpp:384-422`): the geometric loop with the
+  reference's live cosine-weighted champion metric
+  (`registration.icp.register_frame_icp_xd`) where the map stores D-dim
+  descriptors, and on the coordinates otherwise, as in the reference. The
+  odometry (`kiss.kiss_icp.KissICP`) and the ComputeTransform service
+  register descriptor clouds this way, never through VFM-ICP;
 * an empty map returns the guess (`Registration.cpp:150`).
-
-The XD path (`Registration.cpp:384-422`: `force_xd`, or a descriptor dim
-that the VFM path does not take while the map stores that dim) waits for the
-KISS odometry port (ROADMAP A10) and raises. A descriptor dim the map does
-not store registers on the coordinates, as in the reference.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from vfmreg_tpu_torch.registration.icp import (
     MAX_NUM_ITERATIONS,
     register_frame_icp,
     register_frame_icp_stats,
+    register_frame_icp_xd,
 )
 from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
 
@@ -83,16 +86,14 @@ def register_frame(
     is_vfm = D == descriptor_dim and D > 0 and not force_xd
     if vfm_descriptor_size is not None:
         is_vfm = is_vfm and D == vfm_descriptor_size
-    if not is_vfm and D > 0 and D == descriptor_dim:
-        raise NotImplementedError(
-            "register_frame: the XD path (cosine-weighted neighbours) waits for the KISS "
-            "odometry port (ROADMAP A10)"
-        )
 
     if not is_vfm:
         xyz, mask = _pad(points[:, :3], dev)
         guess = torch.from_numpy(initial_guess).to(torch.float32)
-        if two_phase:
+        if D > 0 and D == descriptor_dim:
+            feats, _ = _pad(points[:, 3:], dev)
+            pose = register_frame_icp_xd(grid, xyz, feats, mask, guess, max_correspondance_distance, kernel)
+        elif two_phase:
             # The batched vanilla row's per-lane phase program
             # (`parallel.mesh.batched_icp_two_phase`): phase 1 with its budget,
             # then, only if the lane did not settle, a resume from the phase-1

@@ -78,10 +78,16 @@ def gn_terms_plain(
     ksel = ksel.clamp(max=cx.shape[0] - 1)
     bx, by, bz = (torch.gather(c, 0, ksel)[0] for c in (cx, cy, cz))
     best = best[0]
+    return moment_terms(source, torch.stack([bx, by, bz], dim=1), best, best < max_d2, kernel, center)
 
-    accept = best < max_d2
-    w = torch.where(accept, (kernel * kernel) / torch.square(kernel + best), 0.0)
-    rx, ry, rz = (torch.where(accept, s - b, 0.0) for s, b in ((sx, bx), (sy, by), (sz, bz)))
+
+def moment_terms(source: torch.Tensor, target: torch.Tensor, r2: torch.Tensor, accept: torch.Tensor,
+                 kernel: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """[17, N] per-query terms of the moments of the pairs (source [N, 3],
+    target [N, 3]) with squared residuals r2 [N], where `accept` holds."""
+    sx, sy, sz = source[:, 0], source[:, 1], source[:, 2]
+    w = torch.where(accept, (kernel * kernel) / torch.square(kernel + r2), 0.0)
+    rx, ry, rz = (torch.where(accept, source[:, c] - target[:, c], 0.0) for c in range(3))
     px, py, pz = (torch.where(accept, s - c, 0.0) for s, c in zip((sx, sy, sz), center))
     return torch.stack([
         accept.to(torch.float32), w,
@@ -321,11 +327,12 @@ def gn_finish_lanes_plain(m: torch.Tensor, st: GNLanes, center: torch.Tensor, li
     st.moments.copy_(torch.where(live[:, None], m, st.moments))
     st.dx.copy_(torch.where(live[:, None], dx, st.dx))
     # The pose update lane by lane: a 3 x 3 product on the CPU goes to the
-    # BLAS, whose rounding a batched product does not repeat.
-    for j in torch.nonzero(live).flatten().tolist():
+    # BLAS, whose rounding a batched product does not repeat. Every lane is
+    # computed and the live ones kept, so that no step waits on a read.
+    for j in range(live.shape[0]):
         est = conjugate_translation(exp_se3(st.dx[j]), center[j])
-        st.est[j] = est
-        st.T[j] = est @ st.T[j]
+        st.est[j] = torch.where(live[j], est, st.est[j])
+        st.T[j] = torch.where(live[j], est @ st.T[j], st.T[j])
 
 
 def gn_step_lanes_plain(cx, cy, cz, source, center, kernel: float, max_dist: float,

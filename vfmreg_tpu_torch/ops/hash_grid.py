@@ -1,8 +1,12 @@
 """Device-resident voxel hash grid: build, 27-voxel candidate gather, champion cache.
 
-Counterpart of the parts of `vfmreg_tpu/ops/hash_grid.py` that scan-to-map
-registration runs. The layout is the reference's, array for array, so that a
-grid built by either package can be fed to the other (`convert.grid_from_numpy`):
+Counterpart of `vfmreg_tpu/ops/hash_grid.py`: the grid build (with the
+odometry map's voxel eviction), the incremental map update
+(`extend_hash_grid`), the 27-voxel gathers, the champion caches, and the XD
+path's cosine-weighted candidates, which the reference also computes
+outside any Pallas kernel. The layout is the reference's, array for array,
+so that a grid built by either package can be fed to the other
+(`convert.grid_from_numpy`):
 
 * points stable-sorted by 32-bit voxel hash, same-voxel points contiguous in
   insertion order (the first `max_points_per_voxel` are kept);
@@ -53,9 +57,16 @@ def build_hash_grid(
     mask: Optional[torch.Tensor] = None,
     feats: Optional[torch.Tensor] = None,
     max_points_per_voxel: int = 20,
+    evict_origin: Optional[torch.Tensor] = None,
+    max_distance: Optional[float] = None,
 ) -> HashGrid:
     """Build the grid from a padded point cloud (reference `build_hash_grid`,
-    without voxel eviction). Runs where `points` lives."""
+    `VoxelHashMap::AddPoints`): voxel = trunc(p / voxel_size), the first
+    `max_points_per_voxel` points of each voxel kept in insertion order.
+    With `evict_origin` ([3] f32) and `max_distance`, every voxel whose first
+    point lies farther than `max_distance` from the origin goes whole
+    (`RemovePointsFarFromLocation`): its count is 0 in the table and its rows
+    are invalid. Runs where `points` lives."""
     n = points.shape[0]
     dev = points.device
     if mask is None:
@@ -82,8 +93,19 @@ def build_hash_grid(
     end_pp = torch.cat([nxt[1:], torch.full((1,), n, dtype=torch.int64, device=dev)])
     count_pp = torch.clamp(end_pp - start_pp, max=max_points_per_voxel)
 
+    evict_pt = torch.zeros(n, dtype=torch.bool, device=dev)
+    if evict_origin is not None:
+        # Each point's bucket's first point; d2 summed as numpy sums three
+        # terms, ((x^2 + y^2) + z^2), so that the host map evicts the same
+        # voxels at the boundary.
+        d = pts_s[start_pp.clamp(0, n - 1)] - evict_origin.to(dev, torch.float32)
+        d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        max_d2 = torch.tensor(max_distance, dtype=torch.float32, device=dev) ** 2
+        evict_pt = (d2 > max_d2) & mask_s
+        count_pp = torch.where(evict_pt, 0, count_pp)
+
     rank = row - start_pp
-    valid = mask_s & (rank < max_points_per_voxel)
+    valid = mask_s & (rank < max_points_per_voxel) & ~evict_pt
 
     # ----- bucket-aligned slab store --------------------------------------
     # Two all-sentinel rows at the end: row n*S is the empty slab that absent
@@ -148,6 +170,39 @@ def build_hash_grid(
         voxel_size=float(voxel_size),
         max_points_per_voxel=max_points_per_voxel,
     )
+
+
+def extend_hash_grid(
+    old_points: torch.Tensor,
+    old_valid: torch.Tensor,
+    old_feats: Optional[torch.Tensor],
+    new_points: torch.Tensor,
+    new_mask: torch.Tensor,
+    new_feats: Optional[torch.Tensor],
+    voxel_size: float,
+    origin: torch.Tensor,
+    max_distance: float,
+    cap: int,
+    max_points_per_voxel: int = 20,
+    evict: bool = True,
+) -> HashGrid:
+    """The incremental map update (reference `extend_hash_grid`): the stored
+    rows (old [M_old, 3], their validity and descriptors) and a new
+    world-frame frame (new [M_new, 3], mask, descriptors) concatenated,
+    compacted by a stable sort (valid rows first, old before new) and cut to
+    `cap` rows, then rebuilt with the voxels beyond `max_distance` of
+    `origin` evicted. Insertion order survives the compaction, so the
+    per-voxel cap and the first-point eviction keep the reference's points.
+    Only the new frame comes from the host; the rest stays on the device."""
+    pts = torch.cat([old_points, new_points.to(torch.float32)])
+    mask = torch.cat([old_valid, new_mask])
+    order = torch.sort((~mask).to(torch.int32), stable=True).indices[:cap]
+    feats = None
+    if old_feats is not None:
+        feats = torch.cat([old_feats, new_feats.to(torch.float32)])[order]
+    return build_hash_grid(pts[order], voxel_size, mask=mask[order], feats=feats,
+                           max_points_per_voxel=max_points_per_voxel,
+                           evict_origin=origin if evict else None, max_distance=max_distance)
 
 
 def build_padded_grid(
@@ -329,3 +384,139 @@ def nn_from_cache(
     best_pt = torch.where(found[:, None], best_pt, 0.0)
     dist = torch.sqrt(torch.where(found, best_d2, float("inf")))
     return best_pt, dist, found
+
+
+def nn_from_slabs(
+    cands: Candidates,
+    queries: torch.Tensor,
+    query_mask: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Closest gathered candidate per query: (neighbour [N, 3], dist [N],
+    found [N]), dist = +inf where nothing was found. With `weights` [N, K]
+    the candidate of least d2 * weight wins (the XD resolve); dist is its
+    Euclidean distance either way."""
+    n = queries.shape[0]
+    if query_mask is None:
+        query_mask = torch.ones(n, dtype=torch.bool, device=queries.device)
+    xs, ys, zs = (c.reshape(n, -1) for c in cands.coords())
+    dx = xs - queries[:, 0:1]
+    dy = ys - queries[:, 1:2]
+    dz = zs - queries[:, 2:3]
+    d2 = dx * dx + dy * dy + dz * dz
+    best, ksel = _argmin_first(d2 if weights is None else d2 * weights, dim=-1)
+    found = torch.isfinite(best) & query_mask
+    best_pt = torch.stack([_select(ksel, c, -1) for c in (xs, ys, zs)], dim=1)
+    best_pt = torch.where(found[:, None], best_pt, 0.0)
+    d2_best = best if weights is None else _select(ksel, d2, -1)
+    return best_pt, torch.sqrt(torch.where(found, d2_best, float("inf"))), found
+
+
+def nearest_neighbors(
+    grid: HashGrid, queries: torch.Tensor, query_mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Closest map point in the 27-voxel neighbourhood of each query
+    (`GetClosestNeighbor`, `VoxelHashMap.cpp:79-134`), at any distance: the
+    caller applies its correspondence gate."""
+    return nn_from_slabs(gather_candidate_slabs(grid, queries, query_mask), queries, query_mask)
+
+
+def candidate_weights(
+    cands: Candidates, grid_feats: torch.Tensor, qfeats: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """[N, 27 * S * 32] XD distance weights of the gathered candidates,
+    `clamp(0.5 * (1 - cos), 0.01, 1.0)` with cos = <n, q> / (|n| |q| + 1e-5)
+    where both the query and the candidate have a nonzero descriptor sum,
+    else 1.0 (the XD `GetClosestNeighbor`, `VoxelHashMap.cpp:360-384`). A
+    weight depends only on the candidate's identity, so the ICP loop takes
+    it once per slab gather. The descriptor gather goes one neighbour voxel
+    at a time, as the reference's `lax.map`: its peak is [N, S * 32, D],
+    not 27 times that."""
+    n, v, S, _ = cands.slabs.shape
+    M = grid_feats.shape[0]
+    # Dead lanes carry the sentinel as their row id: clamp before the cast.
+    rows = cands.rowids().clamp(0, M - 1).to(torch.int64)  # [N, 27, S * 32]
+    qfeats = qfeats.to(torch.float32)
+    q_has = qfeats.sum(dim=-1) != 0.0  # a sum, not a norm (`VoxelHashMap.cpp:367`)
+    qn = torch.linalg.vector_norm(qfeats, dim=-1)
+    out = torch.empty((n, v, S * 32), dtype=torch.float32, device=qfeats.device)
+    for j in range(v):
+        f = grid_feats[rows[:, j]]  # [N, S * 32, D]
+        dot = torch.einsum("nkd,nd->nk", f, qfeats)
+        cos = dot / (torch.linalg.vector_norm(f, dim=-1) * qn[:, None] + eps)
+        w = torch.clamp(0.5 * (1.0 - cos), 0.01, 1.0)
+        out[:, j] = torch.where(q_has[:, None] & (f.sum(dim=-1) != 0.0), w, 1.0)
+    return out.reshape(n, v * S * 32)
+
+
+class WeightedNNCache(NamedTuple):
+    """Champion cache of the XD weighted metric: per neighbour voxel the
+    candidate of least d2 * weight, with its weight (`cw`, 1.0 in the pad
+    rows), so that the resolve between rebuilds stays in that metric.
+    [32, N] each; acceptance stays Euclidean (`VoxelHashMap.cpp:425-433`)."""
+
+    cx: torch.Tensor
+    cy: torch.Tensor
+    cz: torch.Tensor
+    cw: torch.Tensor
+
+
+def build_weighted_nn_cache(
+    cands: Candidates,
+    weights: torch.Tensor,
+    queries: torch.Tensor,
+    query_mask: Optional[torch.Tensor] = None,
+) -> WeightedNNCache:
+    """Per-voxel champions under the weighted metric (weights from
+    `candidate_weights`)."""
+    n = cands.slabs.shape[0]
+    dev = queries.device
+    if query_mask is None:
+        query_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    xs, ys, zs = cands.coords()  # [N, 27, S*32]
+    dx = xs - queries[:, None, 0:1]
+    dy = ys - queries[:, None, 1:2]
+    dz = zs - queries[:, None, 2:3]
+    d2 = dx * dx + dy * dy + dz * dz  # sentinels overflow to +inf
+    w = weights.reshape(d2.shape)
+    best, ksel = _argmin_first(d2 * w, dim=-1)  # inf * [0.01, 1] stays inf
+    alive = torch.isfinite(best) & query_mask[:, None]
+
+    def plane(arr, dead, pad):
+        champ = torch.where(alive, _select(ksel, arr, -1), dead)
+        return torch.cat([champ.T, torch.full((32 - 27, n), pad, dtype=torch.float32, device=dev)]).contiguous()
+
+    return WeightedNNCache(
+        cx=plane(xs, INVALID_COORD, INVALID_COORD),
+        cy=plane(ys, INVALID_COORD, INVALID_COORD),
+        cz=plane(zs, INVALID_COORD, INVALID_COORD),
+        cw=plane(w, 1.0, 1.0),
+    )
+
+
+def nn_from_weighted_cache(
+    cache: WeightedNNCache, queries: torch.Tensor, query_mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weighted metric's champion per query, with its plain Euclidean
+    distance for the acceptance gate: (neighbour [N, 3], dist [N], found [N])."""
+    n = queries.shape[0]
+    if query_mask is None:
+        query_mask = torch.ones(n, dtype=torch.bool, device=queries.device)
+    d2 = ((cache.cx - queries[:, 0]) ** 2 + (cache.cy - queries[:, 1]) ** 2
+          + (cache.cz - queries[:, 2]) ** 2)
+    best, ksel = _argmin_first(d2 * cache.cw, dim=0)
+    best_pt = torch.stack([_select(ksel, c, 0) for c in (cache.cx, cache.cy, cache.cz)], dim=1)
+    d2_eucl = _select(ksel, d2, 0)
+    found = torch.isfinite(best) & query_mask
+    best_pt = torch.where(found[:, None], best_pt, 0.0)
+    return best_pt, torch.sqrt(torch.where(found, d2_eucl, float("inf"))), found
+
+
+def nearest_neighbors_xd(
+    grid: HashGrid, queries: torch.Tensor, qfeats: torch.Tensor, query_mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The XD weighted neighbour over the whole 27-voxel candidate set (the
+    XD `GetClosestNeighbor`, `VoxelHashMap.cpp:360-404`): the candidate of
+    least d2 * weight, with its Euclidean distance."""
+    cands = gather_candidate_slabs(grid, queries, query_mask)
+    return nn_from_slabs(cands, queries, query_mask, candidate_weights(cands, grid.feats, qfeats))

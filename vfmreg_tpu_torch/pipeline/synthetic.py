@@ -17,6 +17,10 @@ synthetic scene through the batched method row and print the recall table:
 `SyntheticCameraRig` and `make_rig_cloud` feed the descriptor pass
 (`pipeline/prepare_scenes.create_descriptors`): five seeded camera images per
 cloud and their projections, in place of a dataset sequence.
+
+`SyntheticDrive` feeds the KISS odometry (`kiss.kiss_icp.KissICP`): the
+reference example's corridor (`examples/odometry_corridor.py`), scaled out
+to a street drive with KITTI-sized sweeps.
 """
 
 from __future__ import annotations
@@ -26,6 +30,14 @@ import zlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from vfmreg_tpu_torch.config import MAX_RANGE
+
+# SyntheticDrive: 1 m a frame (KITTI's ~10 m/s at its 10 Hz sweep rate), a
+# yaw rate of up to 2 deg a frame, and each return's range off by a normal
+# error of 2 cm (the HDL-64E's stated range accuracy, under 2 cm: Velodyne
+# HDL-64E S2 data sheet).
+DRIVE_STEP_M, DRIVE_MAX_YAW_DEG, DRIVE_RANGE_SIGMA_M = 1.0, 2.0, 0.02
 
 
 def make_synthetic_scene(
@@ -193,6 +205,93 @@ def make_rig_cloud(n: int, seed: int = 0) -> np.ndarray:
     yaw = rng.uniform(0.0, 2.0 * np.pi, n)
     z = np.r_[-1.7 + rng.normal(0.0, 0.03, n_ground), rng.uniform(-1.7, 6.0, n - n_ground)]
     return np.c_[r * np.cos(yaw), r * np.sin(yaw), z].astype(np.float32)
+
+
+class SyntheticDrive:
+    """A seeded drive through a synthetic street, for the odometry.
+
+    The reference example's `CorridorDataset` scaled out: one fixed world
+    of ground (z in [0, 0.1] m), facade panels 11-14 m to each side of the
+    road with gaps, a pole every 12 m on each side, and boxes of 4-20 m (walls
+    4-15 m high) set back from the road. The vehicle drives DRIVE_STEP_M a
+    frame with a yaw rate of up to DRIVE_MAX_YAW_DEG a frame (a slow sine, so
+    the road winds), its sensor 1.8 m above the ground. The world's frame is
+    the first sensor pose's, as an odometry's. Frame i is `n_points` world
+    points within MAX_RANGE of that sensor, drawn without replacement
+    (seed, frame), in the sensor's frame, each moved along its ray by a
+    normal range error of DRIVE_RANGE_SIGMA_M drawn from (seed, frame), f32:
+    122,880 points is a KITTI HDL-64E sweep. With d > 0 each point carries d
+    descriptor columns, a smooth function of its world position (the
+    example's sin(p W * 0.2)); every 11th world point's is zero. `gt_poses`
+    [n, 4, 4] f64, the first the identity."""
+
+    def __init__(self, n_frames: int = 200, n_points: int = 122880, d: int = 0, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.n_points, self.d, self.seed = n_points, d, seed
+        yaw = np.deg2rad(DRIVE_MAX_YAW_DEG) * np.sin(2 * np.pi * np.arange(n_frames) / 67.0)
+        heading = np.concatenate([[0.0], np.cumsum(yaw[:-1])])
+        xy = np.zeros((n_frames, 2))
+        for i in range(1, n_frames):
+            xy[i] = xy[i - 1] + DRIVE_STEP_M * np.array([np.cos(heading[i - 1]), np.sin(heading[i - 1])])
+        self.gt_poses = np.tile(np.eye(4), (n_frames, 1, 1))
+        c, s_ = np.cos(heading), np.sin(heading)
+        self.gt_poses[:, 0, 0], self.gt_poses[:, 0, 1], self.gt_poses[:, 1, 0], self.gt_poses[:, 1, 1] = c, -s_, s_, c
+        self.gt_poses[:, :2, 3] = xy
+        self.gt_poses[:, 2, 3] = 1.8
+
+        lo, hi = xy.min(axis=0) - MAX_RANGE - 5.0, xy.max(axis=0) + MAX_RANGE + 5.0
+        area = float(np.prod(hi - lo))
+        parts = [np.c_[rng.uniform(lo, hi, (int(5.0 * area), 2)), rng.uniform(0.0, 0.1, int(5.0 * area))]]
+        # Road-side facades and poles, along the path (every 3rd frame's pose).
+        for i in range(0, n_frames, 3):
+            fwd, left = np.array([c[i], s_[i]]), np.array([-s_[i], c[i]])
+            for side in (-1.0, 1.0):
+                if rng.rand() < 0.8:  # a facade panel, or a gap
+                    n = 900
+                    off = side * rng.uniform(11.0, 14.0)
+                    along = rng.uniform(-2.0, 2.0, n)
+                    pts = xy[i] + np.outer(along, fwd) + off * left
+                    parts.append(np.c_[pts, rng.uniform(0.0, 8.0, n)])
+                if i % 12 == 0:
+                    n = 240
+                    a = rng.uniform(0, 2 * np.pi, n)
+                    base = xy[i] + side * 8.0 * left
+                    parts.append(np.c_[base + 0.15 * np.c_[np.cos(a), np.sin(a)], rng.uniform(0.0, 6.0, n)])
+        # Boxes set back from the road: four walls each.
+        centers = rng.uniform(lo, hi, (600, 2))
+        dist = np.min(np.linalg.norm(centers[:, None] - xy[None, ::5], axis=-1), axis=1)
+        for (cx, cy), w, h, height, ang in zip(centers[dist > 25.0], rng.uniform(4, 20, 600),
+                                               rng.uniform(4, 20, 600), rng.uniform(4, 15, 600),
+                                               rng.uniform(0, np.pi, 600)):
+            n = int(0.6 * 2 * (w + h) * height)
+            t = rng.uniform(0, 2 * (w + h), n)
+            u = np.where(t < w, t, np.where(t < w + h, w, np.where(t < 2 * w + h, 2 * w + h - t, 0.0)))
+            v = np.where(t < w, 0.0, np.where(t < w + h, t - w, np.where(t < 2 * w + h, h, 2 * (w + h) - t)))
+            R = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+            pts = (np.c_[u - w / 2, v - h / 2] @ R.T) + [cx, cy]
+            parts.append(np.c_[pts, rng.uniform(0.0, height, n)])
+        # World coordinates are the first sensor pose's: it is the identity.
+        self.world = (np.concatenate(parts) - [0.0, 0.0, 1.8]).astype(np.float32)
+        self.gt_poses[:, 2, 3] = 0.0
+        self._W = rng.normal(size=(3, d)).astype(np.float32) if d else None
+
+    def __len__(self) -> int:
+        return self.gt_poses.shape[0]
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        T = self.gt_poses[i]
+        rel = self.world - T[:3, 3].astype(np.float32)
+        near = np.flatnonzero(np.einsum("ij,ij->i", rel, rel) < np.float32(MAX_RANGE**2))
+        rng = np.random.RandomState([self.seed, i])
+        sel = np.sort(rng.choice(near, self.n_points, replace=near.size < self.n_points))
+        frame = (self.world[sel].astype(np.float64) - T[:3, 3]) @ T[:3, :3]
+        r = np.maximum(np.linalg.norm(frame, axis=1), 1e-6)
+        frame = (frame * (1.0 + rng.normal(0.0, DRIVE_RANGE_SIGMA_M, r.shape) / r)[:, None]).astype(np.float32)
+        if not self.d:
+            return frame
+        feats = np.sin(self.world[sel] @ self._W * np.float32(0.2)).astype(np.float32)
+        feats[sel % 11 == 0] = 0.0
+        return np.c_[frame, feats]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

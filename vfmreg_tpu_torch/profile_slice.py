@@ -1,7 +1,7 @@
 """Where a path of the port spends its time on the card.
 
-    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|node|descriptor]
-        [--reps N] [--steps-per-read 1,4,16]
+    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|node|descriptor|odometry]
+        [--reps N] [--steps-per-read 1,4,16] [--frames N]
 
 Builds the same full-width inputs as `chip_smoke.py` for the path, seed 0:
 the scan-to-map slice, the evaluation driver's method row
@@ -12,7 +12,10 @@ columns, on that scene in a scene file's layout), each B = 8 scans x
 16,384 points against a 524,288-point map with 384-d descriptors; or the
 descriptor pass
 (`pipeline.prepare_scenes.create_descriptors` at ViT-S/14 with random
-seeded weights, 8 clouds x 16,384 points, 40 rig images of 1232 x 1616).
+seeded weights, 8 clouds x 16,384 points, 40 rig images of 1232 x 1616);
+or the KISS odometry (`kiss.kiss_icp.KissICP` with the default config, its
+map resident on the card, over the first `--frames` frames of
+`pipeline.synthetic.SyntheticDrive`: 122,880-point sweeps, 1 m a frame).
 It warms up once, then prints JSON lines:
 
 * `stages`: host-clock seconds of each stage with a synchronize after it,
@@ -24,8 +27,12 @@ It warms up once, then prints JSON lines:
   `registration.icp.GN_STEPS_PER_READ`, the values run in turns; node: the
   node's own stage clock and the kernels' launches per scene; descriptor: the
   whole pass, then its images and its ViT features timed apart, and the
-  rest, projection, sampling and dedupe, as the difference);
-* `profile`: one call without the profiler, timed on the host clock
+  rest, projection, sampling and dedupe, as the difference; odometry: per
+  frame, the median and p90 seconds of each stage of `run_odometry`, and
+  frames per second, then the seconds of each free-running run of the same
+  frames (`odometry_wall`: one synchronize at the end), with the map's
+  lagged point count and with a synchronize after every map update);
+* `profile`: one call without the profiler (odometry: a free-running run), timed on the host clock
   (`wall_s`), then one call under `torch.profiler`: its device-busy seconds
   (the sum of device self time, which on one stream does not overlap), the
   idle share 1 - busy / wall_s, the profiled call's own wall time and idle
@@ -43,9 +50,12 @@ import json
 import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from vfmreg_tpu_torch.config import load_config
+from vfmreg_tpu_torch.kiss import kiss_icp
 from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator
 from vfmreg_tpu_torch.models.vit import PRESETS
 from vfmreg_tpu_torch.ops import _build
@@ -55,6 +65,7 @@ from vfmreg_tpu_torch.pipeline import registration_node as rn
 from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
 from vfmreg_tpu_torch.pipeline.synthetic import (
     SyntheticCameraRig,
+    SyntheticDrive,
     make_rig_cloud,
     make_synthetic_scene,
     scene_file_layout,
@@ -168,9 +179,113 @@ def _descriptor(reps, dev):
     return run
 
 
+ODOMETRY_STAGES = ("preprocess_voxelize", "registration", "map_update", "total")
+
+
+def run_odometry(kiss, dataset, frames, use_descriptors: bool = False, after_frame=None):
+    """Register `dataset[i]` for each i of `frames` with `kiss` (a KissICP)
+    and time each frame by stage on the host clock, with a synchronize after
+    each stage: `registration` (`kiss.registration.register_frame`),
+    `map_update` (`VoxelHashMap.update`) and `preprocess_voxelize`, the rest
+    of the frame (range crop, both voxelizations, threshold, guess). Reading
+    a frame is not timed. `after_frame(i)`, if given, runs after frame i's
+    clock stops. Returns one dict of seconds per frame."""
+    sync = torch.cuda.synchronize if kiss.local_map.device.type == "cuda" else (lambda: None)
+    clock = {}
+
+    def timed(key, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            clock[key] = time.perf_counter() - t0
+            return out
+        return wrapped
+
+    register = kiss_icp.register_frame
+    kiss_icp.register_frame = timed("registration", register)
+    kiss.local_map.update = timed("map_update", kiss.local_map.update)
+    rows = []
+    try:
+        for i in frames:
+            frame = dataset[i]
+            clock.clear()
+            t0 = time.perf_counter()
+            kiss.register_frame(frame, None, use_descriptors=use_descriptors)
+            sync()
+            total = time.perf_counter() - t0
+            reg, upd = clock.get("registration", 0.0), clock.get("map_update", 0.0)
+            rows.append({"frame": i, "total": total, "registration": reg, "map_update": upd,
+                         "preprocess_voxelize": total - reg - upd})
+            if after_frame is not None:
+                after_frame(i)
+    finally:
+        kiss_icp.register_frame = register
+        del kiss.local_map.update
+    return rows
+
+
+def odometry_wall(kiss, frames, use_descriptors: bool = False, sync_update: bool = False) -> float:
+    """Seconds for `kiss` (a KissICP) to register every frame of `frames`
+    (arrays already read) with one synchronize at the end, as
+    `OdometryPipeline` runs it: the map's merge on the card may overlap the
+    next frame's host work. With `sync_update` a synchronize follows every
+    map update, as a point count read at once after each merge would force."""
+    sync = torch.cuda.synchronize if kiss.local_map.device.type == "cuda" else (lambda: None)
+    if sync_update:
+        update = kiss.local_map.update
+
+        def synced(*args, **kwargs):
+            out = update(*args, **kwargs)
+            sync()
+            return out
+        kiss.local_map.update = synced
+    try:
+        t0 = time.perf_counter()
+        for frame in frames:
+            kiss.register_frame(frame, None, use_descriptors=use_descriptors)
+        sync()
+        return time.perf_counter() - t0
+    finally:
+        if sync_update:
+            del kiss.local_map.update
+
+
+def odometry_stats(rows):
+    """Median and p90 seconds per frame of each stage, and frames per second."""
+    out = {}
+    for key in ODOMETRY_STAGES:
+        v = np.array([r[key] for r in rows])
+        out[key] = {"median_s": float(np.median(v)), "p90_s": float(np.percentile(v, 90))}
+    out["frames_per_s"] = len(rows) / sum(r["total"] for r in rows)
+    return out
+
+
+def _odometry(reps, dev, n_frames):
+    """The odometry's stage clock over `reps` runs of a fresh KissICP over
+    the drive's first `n_frames` frames, then the same frames free-running
+    (`odometry_wall`) with the lagged count and with a synchronize after
+    each update; returns one free-running run."""
+    drive = SyntheticDrive(n_frames=n_frames, seed=0)
+    config = load_config(None)
+    frames = [drive[i] for i in range(n_frames)]
+
+    def run(sync_update=False):
+        return odometry_wall(kiss_icp.KissICP(config, device=dev), frames, sync_update=sync_update)
+
+    run()  # warm-up
+    rows = [r for _ in range(reps) for r in run_odometry(kiss_icp.KissICP(config, device=dev), drive,
+                                                         range(n_frames))]
+    walls = {k: [run(k == "synced_update") for _ in range(reps)] for k in ("free", "synced_update")}
+    print(json.dumps({"stages": odometry_stats(rows), "frames": n_frames, "points_per_frame": drive.n_points,
+                      "free_running_s": walls, "reps": reps, "device": torch.cuda.get_device_name(0)}))
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=["slice", "driver", "node", "descriptor"], default="slice")
+    ap.add_argument("--path", choices=["slice", "driver", "node", "descriptor", "odometry"], default="slice")
+    ap.add_argument("--frames", type=int, default=60, help="odometry: frames of the drive per run")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--steps-per-read", default="",
@@ -190,6 +305,9 @@ def main(argv=None):
         return
     if args.path == "descriptor":
         _profile(_descriptor(args.reps, dev), args.top)
+        return
+    if args.path == "odometry":
+        _profile(_odometry(args.reps, dev, args.frames), args.top)
         return
     scene = shared_map_batch(8, 524288, 16384, 384, seed=0)
     mp, mf, sp, sf = (torch.from_numpy(a).to(dev) for a in scene[:4])
@@ -212,8 +330,14 @@ def main(argv=None):
 
 
 def _profile(run, top_n):
-    """One call of `run` on the host clock, then one under `torch.profiler`,
-    summarised as one JSON line."""
+    """`profile_run`, printed as one JSON line."""
+    print(json.dumps({"profile": profile_run(run, top_n)}))
+
+
+def profile_run(run, top_n: int = 12) -> dict:
+    """One call of `run` on the host clock, then one under `torch.profiler`:
+    device-busy seconds, idle share over the unprofiled wall, and the top
+    kernels and host operations."""
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
@@ -233,15 +357,10 @@ def _profile(run, top_n):
     top = sorted(rows, key=lambda r: -r[1])[:top_n]
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])[:top_n]
-    print(json.dumps({
-        "profile": {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
-                    "wall_s_profiled": wall_profiled,
-                    "idle_share_profiled": 1.0 - busy / wall_profiled,
-                    "top_kernels": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
-                                    for k, us, c in top],
-                    "top_host_ops": [{"name": k[:90], "host_self_ms": us / 1e3, "calls": c}
-                                     for k, us, c in host]},
-    }))
+    return {"wall_s": wall, "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
+            "wall_s_profiled": wall_profiled, "idle_share_profiled": 1.0 - busy / wall_profiled,
+            "top_kernels": [{"name": k[:90], "device_ms": us / 1e3, "calls": c} for k, us, c in top],
+            "top_host_ops": [{"name": k[:90], "host_self_ms": us / 1e3, "calls": c} for k, us, c in host]}
 
 
 if __name__ == "__main__":

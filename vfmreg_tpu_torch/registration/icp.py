@@ -5,7 +5,8 @@ Counterpart of the scan-to-map parts of `vfmreg_tpu/registration/icp.py`:
 `gn_step` (`:141`), `geometric_icp_loop` (`:159`) with the reference's
 "planes" champion rebuild on every path (kernel B3), and the entry point
 `register_frame_icp_stats` (`:478`, through `_register_frame_icp_state`,
-`:396`) and `register_frame_icp` (`:443`, its `.pose`).
+`:396`), `register_frame_icp` (`:443`, its `.pose`) and the XD path's
+`register_frame_icp_xd` (`:505`).
 
 The reference runs the B lanes of a row under `vmap`: one device loop,
 masked carries, a converged lane idling bit-exactly while the others finish.
@@ -21,6 +22,12 @@ gather over their concatenated queries, the grid is shared), and flags the
 lanes whose champions need a rebuild. A lane takes the reference's sequence
 of steps whatever the others do, so each lane's result is that of its own
 run, and `geometric_icp_loop` is the B = 1 call.
+
+The XD path (`qfeats`: the query descriptors) takes the same loop with the
+reference's cosine-weighted champions (`ops.hash_grid.candidate_weights`,
+`build_weighted_nn_cache`, `nn_from_weighted_cache`), which the reference
+computes outside its Pallas kernels: plain PyTorch on the lanes' device,
+with the same rounds, reads and lane state, and no launch of B2 or B3.
 
 `gn_step` keeps the per-lane host solve for VFM-ICP's phase 1
 (`registration/vfm_icp.py`).
@@ -48,11 +55,21 @@ from vfmreg_tpu_torch.ops.gn_kernel import (
     REBUILD,
     REBUILDS,
     REBUILT,
+    gn_finish_lanes_plain,
     gn_step_lanes,
+    lanes_live,
     mark_rebuilt,
+    moment_terms,
     new_gn_lanes,
 )
-from vfmreg_tpu_torch.ops.hash_grid import HashGrid, gather_candidate_slabs
+from vfmreg_tpu_torch.ops.hash_grid import (
+    HashGrid,
+    WeightedNNCache,
+    build_weighted_nn_cache,
+    candidate_weights,
+    gather_candidate_slabs,
+    nn_from_weighted_cache,
+)
 
 MAX_NUM_ITERATIONS = 1000  # Registration.cpp:92
 ESTIMATION_THRESHOLD = 1e-4  # Registration.cpp:93
@@ -175,6 +192,27 @@ def _gather_planes(grid: HashGrid, source: torch.Tensor, mask: torch.Tensor, lan
             planes[c].index_copy_(0, idx, a)
 
 
+def _gn_step_lanes_weighted(champs: torch.Tensor, source: torch.Tensor, mask: torch.Tensor,
+                            center: torch.Tensor, kernel: float, max_dist: float, threshold: float,
+                            refresh_interval: int, st) -> None:
+    """One GN step of every live lane on the XD path, in place, in plain
+    PyTorch: each lane's weighted champion (champs [4, B, 32, N]: x, y, z and
+    weight), the Euclidean gate `dist < max_dist`, the moments, then B2's
+    finishing stage (`gn_finish_lanes_plain`) and the move of the live
+    lanes' sources. Frozen lanes are left as they were."""
+    live = lanes_live(st, threshold, refresh_interval)
+    k = torch.tensor(kernel, dtype=torch.float32, device=source.device)
+    m = []
+    for j in range(source.shape[0]):
+        nbr, dist, found = nn_from_weighted_cache(WeightedNNCache(*champs[:, j]), source[j], mask[j])
+        d = source[j] - nbr
+        r2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        m.append(moment_terms(source[j], nbr, r2, found & (dist < max_dist), k, center[j]).sum(dim=1))
+    gn_finish_lanes_plain(torch.stack(m), st, center, live, threshold, refresh_interval)
+    for j in range(source.shape[0]):
+        source[j] = torch.where(live[j], transform_points(source[j], st.est[j]), source[j])
+
+
 class ICPLanes(NamedTuple):
     source: torch.Tensor  # [B, N, 3] device, current world-frame sources
     T_icp: torch.Tensor  # [B, 4, 4] host f32, accumulated corrections
@@ -200,6 +238,7 @@ def geometric_icp_loop_lanes(
     estimation_threshold: float,
     it0: Union[int, Sequence[int]],
     refresh_interval: int = REFRESH_INTERVAL,
+    qfeats: Optional[torch.Tensor] = None,
 ) -> ICPLanes:
     """The reference's three nested loops with their three rules, for B
     lanes at once (source0 [B, N, 3], mask [B, N], T_icp0 [B, 4, 4],
@@ -219,7 +258,12 @@ def geometric_icp_loop_lanes(
     calls. Each slab gather is transposed once into the lane's planes
     buffer, and each rebuild gives `build_nn_cache`'s champions bit for bit
     (the reference's rebuild_mode="planes"; its "slabs" mode is not ported,
-    and `build_nn_cache` stays as the reference B3 is held against)."""
+    and `build_nn_cache` stays as the reference B3 is held against).
+
+    With `qfeats` [B, N, D] (D the grid's descriptor dim) the champions are
+    the XD path's weighted ones: per gather the lane's slabs and their
+    weights, per rebuild `build_weighted_nn_cache`, per step
+    `_gn_step_lanes_weighted`, lane by lane in plain PyTorch."""
     dev = source0.device
     b, n = source0.shape[:2]
     f32 = torch.float32
@@ -232,9 +276,14 @@ def geometric_icp_loop_lanes(
     r_max = torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0), dim=1))
     slack = float(np.float32(0.5) * np.float32(grid.voxel_size))
     st = new_gn_lanes(torch.as_tensor(T_icp0), it0, max_iterations, r_max, slack, n)
-    group = champion_group(grid)
-    planes = torch.empty((3, b, 27 * group, n), dtype=f32, device=dev)
+    weighted = qfeats is not None
     champs = new_champion_buffer(b, n, dev)
+    if weighted:
+        cands, weights = [None] * b, [None] * b  # each lane's epoch: slabs and their weights
+        champs = torch.cat([champs, torch.ones((1, b, 32, n), dtype=f32, device=dev)])
+    else:
+        group = champion_group(grid)
+        planes = torch.empty((3, b, 27 * group, n), dtype=f32, device=dev)
     flags = torch.zeros(b, dtype=torch.int32, device=dev)
     flags_host = torch.zeros(b, dtype=torch.int32, pin_memory=dev.type == "cuda")
 
@@ -250,7 +299,12 @@ def geometric_icp_loop_lanes(
         gather = np.flatnonzero(phase == GATHER)
         rebuild = np.flatnonzero((phase == GATHER) | (phase == REBUILD))
         if gather.size:
-            _gather_planes(grid, source, mask, gather, group, planes)
+            if weighted:
+                for j in gather:
+                    cands[j] = gather_candidate_slabs(grid, source[j], mask[j])
+                    weights[j] = candidate_weights(cands[j], grid.feats, qfeats[j])
+            else:
+                _gather_planes(grid, source, mask, gather, group, planes)
             loop["gather_rounds"] += 1
             loop["lane_gathers"] += gather.size
         if rebuild.size:
@@ -260,14 +314,23 @@ def geometric_icp_loop_lanes(
             fh[rebuild] = REBUILT
             fh[gather] = GATHERED
             flags.copy_(flags_host, non_blocking=True)
-            champions_from_planes_lanes(planes[0], planes[1], planes[2], source, mask, flags, group,
-                                        champs)
+            if weighted:
+                for j in rebuild:
+                    champs[:, j] = torch.stack(build_weighted_nn_cache(cands[j], weights[j], source[j],
+                                                                       mask[j]))
+            else:
+                champions_from_planes_lanes(planes[0], planes[1], planes[2], source, mask, flags, group,
+                                            champs)
             mark_rebuilt(st, flags)
             loop["rebuild_rounds"] += 1
             loop["lane_rebuilds"] += rebuild.size
         for _ in range(GN_STEPS_PER_READ):
-            gn_step_lanes(champs[0], champs[1], champs[2], source, center, kernel, max_dist,
-                          estimation_threshold, refresh_interval, st)
+            if weighted:
+                _gn_step_lanes_weighted(champs, source, mask, center, kernel, max_dist,
+                                        estimation_threshold, refresh_interval, st)
+            else:
+                gn_step_lanes(champs[0], champs[1], champs[2], source, center, kernel, max_dist,
+                              estimation_threshold, refresh_interval, st)
         loop["step_calls"] += GN_STEPS_PER_READ
         ints = st.ints.cpu().numpy()
         loop["reads"] += 1
@@ -279,7 +342,7 @@ def geometric_icp_loop_lanes(
     loop["reads"] += 1
     for log in _LOOP_LOGS:
         log.append({"iterations": (ints[:, IT] - np.broadcast_to(it0, (b,))).tolist(),
-                    "rebuilds": ints[:, REBUILDS].tolist(), "loop": dict(loop)})
+                    "rebuilds": ints[:, REBUILDS].tolist(), "loop": dict(loop), "weighted": weighted})
     return ICPLanes(source, T_icp, ints[:, IT].astype(np.int64), ints[:, DONE] != 0,
                     ints[:, CONF] != 0, ints[:, REBUILDS].astype(np.int64), loop)
 
@@ -342,6 +405,7 @@ def register_frames_icp_stats(
     max_correspondence_distance: float,
     kernel: float,
     max_iterations: int = MAX_NUM_ITERATIONS,
+    qfeats: Optional[torch.Tensor] = None,
 ) -> BatchedICP:
     """KISS-ICP `RegisterFrame` for 3D points (`Registration.cpp:145-195`)
     for B lanes at once (points [B, N, 3], mask [B, N], initial_guesses
@@ -355,7 +419,9 @@ def register_frames_icp_stats(
     points, lane by lane: a batched product, or a sum over a padded row,
     rounds otherwise on the card as the row's width changes, and a lane
     must give what its own one-lane run gives (the driver's serial and
-    batched rows are held equal). Padding rows stay zero; no step reads them."""
+    batched rows are held equal). Padding rows stay zero; no step reads them.
+    With `qfeats` [B, N, D] the lanes take the XD path's weighted champions
+    (`geometric_icp_loop_lanes`)."""
     points = points.to(torch.float32)
     b = points.shape[0]
     guesses = torch.as_tensor(initial_guesses).to("cpu", torch.float32)
@@ -369,7 +435,7 @@ def register_frames_icp_stats(
     eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
     r = geometric_icp_loop_lanes(
         grid, source0, mask, eye, center, max_correspondence_distance, kernel, max_iterations,
-        ESTIMATION_THRESHOLD, it0=0,
+        ESTIMATION_THRESHOLD, it0=0, qfeats=qfeats,
     )
     poses = torch.stack([r.T_icp[j] @ guesses[j] for j in range(b)])
     return BatchedICP(poses, r.it, r.done | r.confirmed, r.rebuilds, r.loop)
@@ -406,3 +472,24 @@ def register_frame_icp_stats(
     r = register_frames_icp_stats(grid, points[None], mask[None], guess[None],
                                   max_correspondence_distance, kernel, max_iterations)
     return ICPStats(r.poses[0], int(r.iterations[0]), bool(r.settled[0]), int(r.rebuilds[0]), r.loop)
+
+
+def register_frame_icp_xd(
+    grid: HashGrid,
+    points: torch.Tensor,
+    feats: torch.Tensor,
+    mask: torch.Tensor,
+    initial_guess,
+    max_correspondence_distance: float,
+    kernel: float,
+    max_iterations: int = MAX_NUM_ITERATIONS,
+) -> torch.Tensor:
+    """KISS-ICP `RegisterFrame` for XD points (`Registration.cpp:384-422`):
+    the 3-D loop with the reference's live cosine-weighted champion metric
+    (`VoxelHashMap.cpp:370-384`; points [N, 3], feats [N, D] with D the
+    grid's descriptor dim, mask [N]); acceptance and residuals stay
+    Euclidean. The pose [4, 4] (host f32)."""
+    guess = torch.as_tensor(initial_guess).to("cpu", torch.float32)
+    r = register_frames_icp_stats(grid, points[None], mask[None], guess[None], max_correspondence_distance,
+                                  kernel, max_iterations, qfeats=feats.to(torch.float32)[None].contiguous())
+    return r.poses[0]
