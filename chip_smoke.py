@@ -12,8 +12,8 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives six paths. The first three run B1-B3, the
-odometry B2 and B3:
+one-lane entries), and drives nine paths. The first three run B1-B3, the
+odometry B2 and B3, the descriptor passes and featup B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -63,7 +63,25 @@ odometry B2 and B3:
   `vfmreg_tpu_torch.pipeline.prepare_scenes.create_descriptors`: kernel B5
   once per ViT block, the points with a descriptor exactly those the rig's
   own projection covers, and every descriptor within cosine 0.9999 of a
-  second run with the plain attention.
+  second run with the plain attention;
+* descriptor_maskclip: the same pass with MaskCLIP (`models/maskclip.py`)
+  at CLIP ViT-B/16 full width (768 wide, 12 layers of 12 heads of 64, the
+  last block value-only, 512-d out; random seeded weights), the images
+  resized to 256 x 320 (T = 321): B5 once per softmax block, 11 a image,
+  512-d descriptors on exactly the points the rig's projection covers, and
+  the first cloud's within cosine 0.9999 of the port's CPU evaluation of
+  the same generator (B5's plain version);
+* featup: `get_image_features(upsample=True)` with `use_featup=True` on the
+  first cloud's five images at ViT-S/14 -> [1232, 1616, 384], once with
+  seeded parameters of FeatUp's learned JBU stack and once without (the
+  classical JBU at the image's resolution), seconds per image, B5 12 a
+  image, and the stack's [256, 320, 384] output for the first image within
+  FEATUP_ATOL of the port's CPU evaluation;
+* clip_text: CLIP's text tower at full width (512 wide, 12 layers, 8
+  heads, context 77; random seeded weights) on the MaskCLIP generator:
+  five prompts encoded and held within TEXT_ATOL of the CPU evaluation,
+  and `compute_similarity` of the first cloud's MaskCLIP descriptors
+  against one, finite, within [-1, 1] and 0 on zero rows.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path was launched as often as
@@ -71,7 +89,8 @@ the path's own counts say: B1 at least once (in the node, once per serial
 correspondence search besides), B2 once per step call of the ICP loops
 (each call steps every live lane of a row; in the node and the odometry,
 summed over every ICP loop the path ran, `registration.icp.recording_loops`),
-B3 once per rebuild round, B5 12 times per image; odometry_xd launches none. Per ICP row it prints the loop's step calls,
+B3 once per rebuild round, B5 12 times per image (11 with MaskCLIP);
+odometry_xd launches none. Per ICP row it prints the loop's step calls,
 reads and rebuild rounds beside the lanes' iterations and rebuilds, and
 checks them against each other (`loop_check`). No path launches B4 (the ICP
 takes the fused B2); it is checked at the slice's and the driver's champion
@@ -87,7 +106,9 @@ node_serial_vs_batched, kernel_check for B1-B3 at the node's serial shapes,
 node_register_frame_vfm, odometry_data, odometry, kernel_check for B2 and
 B3 at the odometry's shapes, odometry_free, odometry_idle, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
-[2, 200, 4, 32] and at T = 320, descriptor), then
+[2, 200, 4, 32] and at T = 320, descriptor, kernel_check for B5 at the
+MaskCLIP pass's q, k, v [1, 321, 12, 64], descriptor_maskclip, featup,
+clip_text), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
 under "paths"), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises and the script
@@ -137,6 +158,13 @@ GN_SRC_ULPS = 2
 ATTN_ATOL, DESC_COS = 2e-5, 0.9999
 # Descriptor pass: ViT-S/14 (vit.py PRESETS["dinov2_vits14"]), 12 blocks.
 VIT_PRESET, VIT_LAYERS = "dinov2_vits14", 12
+# FeatUp phase: the learned stack's [16h, 16w, 384] output on the card
+# against the port's CPU evaluation of the same function, max abs error (f32
+# matmuls, softmaxes and sums in other orders over features of unit scale).
+# Text phase: the text tower's embeddings against its CPU evaluation, max
+# abs error; cosine similarities may pass 1 by rounding, by at most
+# SIM_RANGE_SLACK.
+FEATUP_ATOL, TEXT_ATOL, SIM_RANGE_SLACK = 1e-4, 1e-4, 1e-6
 # Odometry phase: a drive of ODO_FRAMES KITTI-sized sweeps (122,880 points,
 # an HDL-64E sweep); the resident map checked against a host-side replay
 # every ODO_CHECK_EVERY frames; the idle share over a fresh run of the first
@@ -772,6 +800,212 @@ def drive_descriptor(dev, peaks, rows):
     if cos_min < DESC_COS:
         raise RuntimeError(f"descriptors disagree with plain attention: min cosine {cos_min}")
     return launches
+
+
+def _cosines(a, b):
+    """Row-wise cosine of two [N, D] arrays, in float64."""
+    import numpy as np
+
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-300)
+
+
+def drive_descriptor_maskclip(dev, peaks, rows):
+    """The descriptor_maskclip phase: the descriptor pass with MaskCLIP at
+    ViT-B/16 full width. B5 checked on its own q, k, v (block 0 of the first
+    image), then the pass once, counted, timed and gated; the first cloud
+    also evaluated on the CPU. Returns the launches, the descriptors and the
+    generator."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
+
+    t0 = time.perf_counter()
+    gen = ImageFeatureGenerator("maskclip", seed=SEED, device=dev)
+    cfg = gen.config
+    rig = SyntheticCameraRig(seed=SEED)
+    clouds = [make_rig_cloud(N_SCAN, seed=SEED + i) for i in range(BATCH)]
+    files = [[f"cloud{i}/{cam}.png" for cam in rig.cameras] for i in range(BATCH)]
+    emit({"phase": "descriptor_maskclip_data", "seconds": time.perf_counter() - t0, "clouds": BATCH,
+          "points": N_SCAN, "cameras": len(rig.cameras), "image": [rig.height, rig.width, 3],
+          "maskclip": dataclasses.asdict(cfg), "parameters": sum(p.numel() for p in gen.model.parameters())})
+
+    first = rig.read_images(files[0])[rig.cameras[0]]
+    batch, _ = preprocess_image(first, gen.patch_size, gen.patch_h, dev)
+    with torch.no_grad():
+        blk = gen.model.transformer.resblocks[0]
+        q, k, v = blk.attn.qkv(blk.ln_1(gen.model.tokens(batch)))
+    rows["flash_attention"] = check_flash("descriptor_maskclip", q, k, v, peaks)
+    del q, k, v, batch
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    descs = [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_images = BATCH * len(rig.cameras)
+
+    # The port's own CPU evaluation of the same generator and weights (B5's
+    # plain version) on the first cloud.
+    t1 = time.perf_counter()
+    cpu_gen = ImageFeatureGenerator("maskclip", params={k: v.cpu() for k, v in gen.model.state_dict().items()},
+                                    config=cfg, device="cpu")
+    cpu_desc = create_descriptors(files[0], rig, cpu_gen, clouds[0])
+    cpu_seconds = time.perf_counter() - t1
+
+    covered_ok, n_covered, n_expected = True, 0, 0
+    for f, c, d in zip(files, clouds, descs):
+        seen, first_empty = rig.coverage(c, rig.read_images(f))
+        expected = (seen > 0) & ~first_empty
+        covered = np.any(d != 0, axis=1)
+        covered_ok &= bool(np.array_equal(covered, expected))
+        n_covered += int(covered.sum())
+        n_expected += int(expected.sum())
+        if c is clouds[0]:
+            first_expected = expected
+    cos = _cosines(descs[0][first_expected], cpu_desc[first_expected])
+    cos_min = float(cos.min())
+    max_abs = float(np.abs(descs[0] - cpu_desc).max())
+    width_ok = all(d.shape == (N_SCAN, cfg.embed_dim) for d in descs) and cfg.embed_dim == 512
+    softmax_blocks = cfg.num_layers - 1  # the last block is value-only
+    launches_ok = launches.get("flash_attention", 0) == softmax_blocks * n_images
+    ok = covered_ok and launches_ok and width_ok and cos_min >= DESC_COS
+    emit({"phase": "descriptor_maskclip", "ok": ok, "seconds": seconds, "images": n_images,
+          "images_per_s": n_images / seconds, "points_per_s": BATCH * N_SCAN / seconds,
+          "descriptor_width": int(descs[0].shape[1]), "covered_points": n_covered,
+          "expected_covered_points": n_expected, "coverage_exact": covered_ok,
+          "cpu_seconds_first_cloud": cpu_seconds, "min_cosine_vs_cpu": cos_min,
+          "max_abs_diff_vs_cpu": max_abs, "launches": launches, "peak_memory_bytes": peak})
+    if not width_ok:
+        raise RuntimeError(f"MaskCLIP descriptors are not 512-d: {[d.shape for d in descs]}")
+    if not covered_ok:
+        raise RuntimeError(f"descriptor coverage differs from the rig's projection: {n_covered} vs {n_expected}")
+    if not launches_ok:
+        raise RuntimeError(f"the MaskCLIP pass did not launch B5 {softmax_blocks} x {n_images} times: {launches}")
+    if cos_min < DESC_COS:
+        raise RuntimeError(f"MaskCLIP descriptors disagree with the CPU evaluation: min cosine {cos_min}")
+    return launches, descs, gen
+
+
+def drive_featup(dev):
+    """The featup phase: `get_image_features(upsample=True)` with
+    `use_featup=True` on the first cloud's five images at DINOv2 ViT-S/14,
+    once with seeded learned-stack parameters (FeatUp's JBU stack, then
+    bilinear to the image) and once without (the classical JBU at the
+    image's resolution), each timed per image and counted; the stack's
+    [16h, 16w, 384] output for the first image held against the port's CPU
+    evaluation of the same function."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.models import featup
+    from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
+    from vfmreg_tpu_torch.models.vit import PRESETS
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig
+
+    rig = SyntheticCameraRig(seed=SEED)
+    images = list(rig.read_images([f"cloud0/{cam}.png" for cam in rig.cameras]).values())
+    cfg = PRESETS[VIT_PRESET]
+    stack_sd = featup.init_jbu_stack(cfg.hidden_size, torch.Generator().manual_seed(SEED), device="cpu").state_dict()
+    learned = ImageFeatureGenerator("dinov2", use_featup=True, config=cfg, seed=SEED, featup_params=stack_sd,
+                                    device=dev)
+    classical = ImageFeatureGenerator("dinov2", use_featup=True, config=cfg, params=learned.model.state_dict(),
+                                      device=dev)
+
+    out = {}
+    for name, gen in (("learned", learned), ("classical", classical)):
+        _build.reset_launches()
+        secs, finite = [], True
+        for img in images:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = gen.get_image_features(img, upsample=True)
+            secs.append(time.perf_counter() - t0)
+            finite &= feats.shape == (rig.height, rig.width, cfg.hidden_size) and bool(np.isfinite(feats).all())
+            del feats
+        out[name] = {"seconds_per_image": secs, "shape_and_finite": finite,
+                     "stack": gen._featup_stack is not None, "launches": dict(_build.LAUNCHES)}
+
+    batch, _ = preprocess_image(images[0], learned.patch_size, learned.patch_h, dev)
+    with torch.no_grad():
+        feats = learned.model(batch)["patches"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hr = featup.jbu_stack_upsample(learned._featup_stack, feats, batch[0])
+    torch.cuda.synchronize()
+    stack_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hr_cpu = featup.jbu_stack_upsample(featup.stack_from_state_dict(stack_sd, device="cpu"), feats.cpu(),
+                                       batch[0].cpu())
+    cpu_seconds = time.perf_counter() - t0
+    err = float((hr.cpu() - hr_cpu).abs().max())
+    scale = float(hr_cpu.abs().max())
+    h, w = feats.shape[:2]
+    shape_ok = tuple(hr.shape) == (16 * h, 16 * w, cfg.hidden_size)
+    launches_ok = all(o["launches"].get("flash_attention", 0) == VIT_LAYERS * len(images) for o in out.values())
+    branches_ok = out["learned"]["stack"] and not out["classical"]["stack"]
+    ok = (shape_ok and err <= FEATUP_ATOL and launches_ok and branches_ok
+          and all(o["shape_and_finite"] for o in out.values()))
+    emit({"phase": "featup", "ok": ok, "images": len(images), **out, "stack_shape": list(hr.shape),
+          "stack_seconds": stack_seconds, "stack_cpu_seconds": cpu_seconds, "stack_max_abs_err_vs_cpu": err,
+          "stack_max_abs": scale, "atol": FEATUP_ATOL})
+    if not ok:
+        raise RuntimeError(f"featup phase failed: err={err}, shape {tuple(hr.shape)}, {out}")
+
+
+def drive_clip_text(dev, gen, descriptors):
+    """The clip_text phase: CLIP's text tower at full width (seeded random
+    weights) attached to the MaskCLIP generator, a few prompts encoded on
+    the card and held against the port's CPU evaluation, and
+    `compute_similarity` of the first cloud's MaskCLIP descriptors against
+    one of them."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig, SimpleTokenizer, init_clip_text
+
+    cfg = CLIPTextConfig()
+    sd = init_clip_text(cfg, torch.Generator().manual_seed(SEED), device="cpu").state_dict()
+    tokenizer = SimpleTokenizer()
+    gen.set_text_encoder(sd, cfg, tokenizer)
+    cpu_model = CLIPText(cfg)
+    cpu_model.load_state_dict(sd)
+    prompts = ["a photo of a car", "a road", "a building facade", "a tree beside the street", "the sky"]
+
+    emb, secs = [], []
+    for p in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb.append(gen.encode_text(p))
+        secs.append(time.perf_counter() - t0)
+    emb = np.stack(emb)
+    with torch.no_grad():
+        ref = cpu_model.eval()(torch.from_numpy(tokenizer.tokenize(prompts, cfg.context_length))).numpy()
+    err = float(np.abs(emb - ref).max())
+
+    t0 = time.perf_counter()
+    sims = gen.compute_similarity(descriptors, prompts[0])
+    sim_seconds = time.perf_counter() - t0
+    zero = ~np.any(descriptors != 0, axis=1)
+    finite = bool(np.isfinite(sims).all())
+    in_range = bool(np.abs(sims).max() <= 1.0 + SIM_RANGE_SLACK)
+    zeros_ok = bool(np.all(sims[zero] == 0.0)) and int(zero.sum()) > 0
+    ok = err <= TEXT_ATOL and emb.shape == (len(prompts), cfg.embed_dim) and finite and in_range and zeros_ok
+    emit({"phase": "clip_text", "ok": ok, "prompts": len(prompts), "config": dataclasses.asdict(cfg),
+          "seconds_per_prompt": secs, "max_abs_err_vs_cpu": err, "atol": TEXT_ATOL,
+          "embedding_max_abs": float(np.abs(ref).max()), "similarity_seconds": sim_seconds,
+          "similarity_min": float(sims.min()), "similarity_max": float(sims.max()), "finite": finite,
+          "zero_rows": int(zero.sum()), "zero_rows_zero": zeros_ok})
+    if not ok:
+        raise RuntimeError(f"clip_text phase failed: err={err}, finite {finite}, range {in_range}, zeros {zeros_ok}")
 
 
 def drive_driver(dev, peaks, rows):
@@ -1420,6 +1654,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["descriptor"] = {}
     by_path["descriptor"] = drive_descriptor(dev, peaks, rows["descriptor"])
+    torch.cuda.empty_cache()
+    rows["descriptor_maskclip"] = {}
+    by_path["descriptor_maskclip"], mc_descs, mc_gen = drive_descriptor_maskclip(
+        dev, peaks, rows["descriptor_maskclip"])
+    drive_featup(dev)
+    torch.cuda.empty_cache()
+    drive_clip_text(dev, mc_gen, mc_descs[0])
+    del mc_descs, mc_gen
 
     # One row per kernel: the numbers of the newest path that checks it, and
     # under "paths" each path's numbers at its own shapes with its own launch

@@ -104,11 +104,9 @@ def test_pca_to_rgb_matches_jax():
     np.testing.assert_allclose(again[::-1], got, atol=1e-6, rtol=0)
 
 
-def test_waiting_models_raise():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tif.ImageFeatureGenerator("dinov2", use_featup=True, config=PORT_SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tif.ImageFeatureGenerator("maskclip", device="cpu")
+def test_unknown_model_raises():
+    with pytest.raises(ValueError, match="Unsupported foundation model"):
+        tif.ImageFeatureGenerator("sam", device="cpu")
 
 
 def test_create_descriptors_matches_jax(generators):

@@ -8,11 +8,15 @@ tensors it launches the kernel or raises.
 
 The package imports torch, numpy, scipy and the standard library (`h5py`
 inside `data.h5io`'s functions, where a scene file is read or written;
+`cv2` and `PIL` inside the dataset loaders' image readers, `data.nclt`,
+`data.oxford_robotcar`, `data.kitti_odometry`, `data.robotcar_sdk`;
 `yaml` inside `config`'s file readers and writers; `matplotlib` inside
 `kiss.eval.plot_trajectories`). Entry points (`scan_to_map.scan_to_map`,
 `pipeline.registration_node.precompute_scene_batched` and
-`.RegistrationNode`, `models.image_features.ImageFeatureGenerator` for
-`pipeline.prepare_scenes.create_descriptors`, `convert.grid_from_numpy`,
+`.RegistrationNode`, `models.image_features.ImageFeatureGenerator` (DINOv2
+or MaskCLIP, FeatUp, CLIP's text tower) for
+`pipeline.prepare_scenes.create_descriptors`, `.prepare_scene` and its
+CLI, `convert.grid_from_numpy`,
 `kiss.KissICP`, `kiss.pipeline.OdometryPipeline` and `kiss.cli`,
 `pipeline.transform_server`) run on the card unless the caller passes
 `device="cpu"`.

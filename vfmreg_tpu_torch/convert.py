@@ -1,4 +1,4 @@
-"""State carried across from the JAX package: the map index and ViT weights.
+"""State carried across from the JAX package: the map index and model weights.
 
 Scan-to-map registration has no learned weights; its state is the voxel hash
 grid of the map. `grid_from_numpy` takes the arrays of a `vfmreg_tpu`
@@ -6,7 +6,11 @@ grid of the map. `grid_from_numpy` takes the arrays of a `vfmreg_tpu`
 port's `HashGrid` with the same layout, which lets the tests check matching
 and ICP apart from the grid build. `vit_params_from_numpy` does the same for
 the descriptor pass's ViT: the reference's parameter pytree, as numpy
-arrays, becomes the port's `models.vit.ViT` state dict.
+arrays, becomes the port's `models.vit.ViT` state dict;
+`maskclip_params_from_numpy`, `jbu_stack_params_from_numpy` and
+`clip_text_params_from_numpy` do it for MaskCLIP's visual tower, FeatUp's
+JBU stack and CLIP's text tower. Dense weights `w` [in, out] become
+[out, in] as the checkpoints hold them.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from vfmreg_tpu_torch.models.clip_text import CLIPTextConfig
+from vfmreg_tpu_torch.models.maskclip import MaskCLIPConfig
 from vfmreg_tpu_torch.models.vit import ViTConfig
 from vfmreg_tpu_torch.ops.hash_grid import HashGrid
 from vfmreg_tpu_torch.utils.device import resolve_device
@@ -46,34 +52,110 @@ def grid_from_numpy(
     )
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _clip_blocks(blocks, names) -> Dict[str, torch.Tensor]:
+    """`transformer.resblocks.N.*` of the port's CLIP towers from the
+    reference's block dicts; `names` = the reference's (ln_1, qkv, out, ln_2,
+    fc, proj) keys and its LayerNorm (scale, bias) keys."""
+    (ln1, qkv, out_, ln2, fc, proj), (scale, bias) = names
+    out = {}
+    for i, blk in enumerate(blocks):
+        pre = f"transformer.resblocks.{i}."
+        for src, dst in ((ln1, "ln_1"), (ln2, "ln_2")):
+            out[f"{pre}{dst}.weight"] = _t(blk[src][scale])
+            out[f"{pre}{dst}.bias"] = _t(blk[src][bias])
+        out[f"{pre}attn.in_proj_weight"] = _t(np.asarray(blk[qkv]["w"]).T)
+        out[f"{pre}attn.in_proj_bias"] = _t(blk[qkv]["b"])
+        for src, dst in ((out_, "attn.out_proj"), (fc, "mlp.c_fc"), (proj, "mlp.c_proj")):
+            out[f"{pre}{dst}.weight"] = _t(np.asarray(blk[src]["w"]).T)
+            out[f"{pre}{dst}.bias"] = _t(blk[src]["b"])
+    return out
+
+
 def vit_params_from_numpy(params: Mapping[str, Any], cfg: ViTConfig) -> Dict[str, torch.Tensor]:
     """The port's `ViT` state dict (CPU tensors) from the reference's ViT
     parameter pytree (`init_vit_params` / `load_torch_state_dict`, leaves as
     numpy arrays): dense `w` [in, out] becomes `Linear.weight` [out, in], the
     patch weight goes from HWIO to OIHW. Load with `ViT(cfg).load_state_dict`."""
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
     if len(params["blocks"]) != cfg.num_layers:
         raise ValueError(f"{len(params['blocks'])} blocks for a {cfg.num_layers}-layer config")
     out = {
-        "patch_embed.weight": t(np.asarray(params["patch_embed"]["w"]).transpose(3, 2, 0, 1)),
-        "patch_embed.bias": t(params["patch_embed"]["b"]),
-        "cls_token": t(params["cls_token"]),
-        "pos_embed": t(params["pos_embed"]),
-        "norm.weight": t(params["final_norm"]["scale"]),
-        "norm.bias": t(params["final_norm"]["bias"]),
+        "patch_embed.weight": _t(np.asarray(params["patch_embed"]["w"]).transpose(3, 2, 0, 1)),
+        "patch_embed.bias": _t(params["patch_embed"]["b"]),
+        "cls_token": _t(params["cls_token"]),
+        "pos_embed": _t(params["pos_embed"]),
+        "norm.weight": _t(params["final_norm"]["scale"]),
+        "norm.bias": _t(params["final_norm"]["bias"]),
     }
     for i, blk in enumerate(params["blocks"]):
         pre = f"blocks.{i}."
         for name in ("norm1", "norm2"):
-            out[f"{pre}{name}.weight"] = t(blk[name]["scale"])
-            out[f"{pre}{name}.bias"] = t(blk[name]["bias"])
+            out[f"{pre}{name}.weight"] = _t(blk[name]["scale"])
+            out[f"{pre}{name}.bias"] = _t(blk[name]["bias"])
         for src, dst in (("q", "attn.q"), ("k", "attn.k"), ("v", "attn.v"), ("proj", "attn.proj"),
                          ("fc1", "fc1"), ("fc2", "fc2")):
-            out[f"{pre}{dst}.weight"] = t(np.asarray(blk[src]["w"]).T)
-            out[f"{pre}{dst}.bias"] = t(blk[src]["b"])
-        out[f"{pre}ls1"] = t(blk["ls1"])
-        out[f"{pre}ls2"] = t(blk["ls2"])
+            out[f"{pre}{dst}.weight"] = _t(np.asarray(blk[src]["w"]).T)
+            out[f"{pre}{dst}.bias"] = _t(blk[src]["b"])
+        out[f"{pre}ls1"] = _t(blk["ls1"])
+        out[f"{pre}ls2"] = _t(blk["ls2"])
+    return out
+
+
+def maskclip_params_from_numpy(params: Mapping[str, Any], cfg: MaskCLIPConfig) -> Dict[str, torch.Tensor]:
+    """The port's `models.maskclip.MaskCLIP` state dict from the reference's
+    MaskCLIP pytree (`init_maskclip_params` / `load_clip_visual_state_dict`,
+    leaves as numpy arrays): the patch weight from HWIO to OIHW, the fused
+    qkv [D, 3D] to `in_proj_weight` [3D, D]. Load with
+    `MaskCLIP(cfg).load_state_dict`."""
+    if len(params["blocks"]) != cfg.num_layers:
+        raise ValueError(f"{len(params['blocks'])} blocks for a {cfg.num_layers}-layer config")
+    out = {
+        "conv1.weight": _t(np.asarray(params["patch_embed"]).transpose(3, 2, 0, 1)),
+        "class_embedding": _t(params["cls_embed"]),
+        "positional_embedding": _t(params["pos_embed"]),
+        "ln_pre.weight": _t(params["ln_pre"]["scale"]),
+        "ln_pre.bias": _t(params["ln_pre"]["bias"]),
+        "ln_post.weight": _t(params["ln_post"]["scale"]),
+        "ln_post.bias": _t(params["ln_post"]["bias"]),
+        "proj": _t(params["proj"]),
+    }
+    out.update(_clip_blocks(params["blocks"], (("ln1", "qkv", "out", "ln2", "fc1", "fc2"), ("scale", "bias"))))
+    return out
+
+
+def clip_text_params_from_numpy(params: Mapping[str, Any], cfg: CLIPTextConfig) -> Dict[str, torch.Tensor]:
+    """The port's `models.clip_text.CLIPText` state dict from the reference's
+    text-tower pytree (`init_clip_text_params` / `load_clip_text_state_dict`,
+    leaves as numpy arrays). Load with `CLIPText(cfg).load_state_dict`."""
+    if len(params["blocks"]) != cfg.num_layers:
+        raise ValueError(f"{len(params['blocks'])} blocks for a {cfg.num_layers}-layer config")
+    out = {
+        "token_embedding.weight": _t(params["token_embedding"]),
+        "positional_embedding": _t(params["positional_embedding"]),
+        "ln_final.weight": _t(params["ln_final"]["gamma"]),
+        "ln_final.bias": _t(params["ln_final"]["beta"]),
+        "text_projection": _t(params["text_projection"]),
+    }
+    out.update(_clip_blocks(params["blocks"], (("ln_1", "qkv", "out", "ln_2", "fc", "proj"), ("gamma", "beta"))))
+    return out
+
+
+def jbu_stack_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's `models.featup.JBUStack` state dict from the reference's JBU
+    stack pytree (`init_jbu_stack_params` / `load_featup_state_dict`, leaves
+    as numpy arrays): the 1 x 1 projections [in, out] become conv weights
+    [out, in, 1, 1]. Load with `featup.stack_from_state_dict`."""
+    out = {}
+    for i, stage in enumerate(params["stages"], start=1):
+        p = f"up{i}."
+        out[p + "range_temp"] = _t(stage["range_temp"]).reshape(())
+        out[p + "sigma_spatial"] = _t(stage["sigma_spatial"]).reshape(())
+        for src, j in (("proj1", "0"), ("proj2", "3")):
+            out[f"{p}range_proj.{j}.weight"] = _t(np.asarray(stage[src + "_w"]).T[:, :, None, None])
+            out[f"{p}range_proj.{j}.bias"] = _t(stage[src + "_b"])
+    out["fixup_proj.1.weight"] = _t(np.asarray(params["fixup_w"]).T[:, :, None, None])
+    out["fixup_proj.1.bias"] = _t(params["fixup_b"])
     return out

@@ -102,14 +102,15 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_h: int, grid_w: int, cfg
 
 
 class PatchEmbed(nn.Module):
-    """The 14x14 / stride-14 patch convolution, weight [D, 3, p, p] (OIHW, the
-    checkpoints' layout), computed as unfold + matmul (full f32)."""
+    """The p x p / stride-p patch convolution, weight [D, 3, p, p] (OIHW, the
+    checkpoints' layout), computed as unfold + matmul (full f32). CLIP's
+    has no bias (`bias=False`)."""
 
-    def __init__(self, patch_size: int, dim: int):
+    def __init__(self, patch_size: int, dim: int, bias: bool = True):
         super().__init__()
         self.patch_size = patch_size
         self.weight = nn.Parameter(torch.zeros(dim, 3, patch_size, patch_size))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] -> [B, h * w, D]."""
