@@ -12,7 +12,7 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives nine paths. The first three run B1-B3, the
+one-lane entries), and drives ten paths. The first four run B1-B3, the
 odometry B2 and B3, the descriptor passes and featup B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
@@ -40,6 +40,23 @@ odometry B2 and B3, the descriptor passes and featup B5:
   = batched (GT and vanilla ICP bit for bit, RANSAC within 2e-3), B1-B3
   checked at the serial column's shapes, and `register_frame`'s VFM branch
   on one full-width scan gated against its true pose;
+* node_baselines: the paper's baseline methods in the same scene loop. The
+  reference torch modules' golden state dicts (`tests/golden/{dip,gedi,
+  spinnet,pointdsc}_reference_golden.npz`) written to .pt files named by
+  `VFMREG_{DIP,GEDI,SPINNET,POINTDSC}_WEIGHTS`, so the models load as a
+  user's do, at full width; each reproduces its golden activations on the
+  card (tests/test_reference_goldens.py's tolerances); FPFH + mutual NN +
+  RANSAC recovers the structured corner's transform within 0.7 m
+  (tests/test_fpfh.py's case); `RegistrationNode.run_scene` on the node's
+  scene with the reference's default matrix minus FCGF / GCL (RANSAC + ICP
+  over fpfh, dip, gedi, spinnet, vfm; TEASER + ICP over fpfh, vfm;
+  PointDSC + ICP over fpfh), every pose finite and rigid, every error key
+  of the reference's make_step, GT and vfm rows gated as in node, B2 and
+  B3 launched as the loops count, seconds per method and stage; then the
+  card against the port's CPU evaluation on the first scan (extractor
+  points equal, FPFH rows, DIP / GeDi / SpinNet cosines, mutual NN pairs in
+  both modes apart from ties, the FPFH TEASER and PointDSC poses), and B2
+  and B3 at the fpfh RANSAC refine's start;
 * odometry: KISS odometry (`kiss.kiss_icp.KissICP`, the default config:
   100 m range, 1 m voxels, 20 points a voxel, the map resident on the card)
   over a 200-frame drive of `pipeline.synthetic.SyntheticDrive` (122,880
@@ -103,7 +120,9 @@ warmup, kernel_check for each kernel on the slice, slice, driver_data,
 kernel_check for each kernel on the driver row, driver, driver_retry,
 driver_rematch, node_data, node_batched, node_serial,
 node_serial_vs_batched, kernel_check for B1-B3 at the node's serial shapes,
-node_register_frame_vfm, odometry_data, odometry, kernel_check for B2 and
+node_register_frame_vfm, node_baselines_golden, node_baselines_fpfh_corner,
+node_baselines, node_baselines_vs_cpu, kernel_check for B2 and B3 at the
+fpfh refine's start, odometry_data, odometry, kernel_check for B2 and
 B3 at the odometry's shapes, odometry_free, odometry_idle, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
 [2, 200, 4, 32] and at T = 320, descriptor, kernel_check for B5 at the
@@ -174,6 +193,34 @@ ODO_FRAMES, ODO_POINTS, ODO_CHECK_EVERY, ODO_IDLE_FRAMES, ODO_XD_FRAMES = 200, 1
 # the 200-frame drive reads with its 2 cm range noise (max RTE 0.052 m, RRE
 # 0.031 deg; H100 80GB HBM3, 700 W), well inside the recall gate above.
 ODO_RTE_GATE_M, ODO_RRE_GATE_DEG = 0.1, 0.1
+# node_baselines phase. Goldens on the card: the reference torch modules'
+# activations at tests/test_reference_goldens.py's tolerances. The FPFH
+# corner at tests/test_fpfh.py's 0.7 m. Rigid poses: |R^T R - I| below
+# RIGID_ATOL. The scene loop over NODE_BASELINE_SCANS scans of the node
+# phase's scene: the map's extractions take 92 s and SpinNet's 7,500
+# keypoints 23 s a scan (H100 80GB HBM3, 700 W), so two scans, the fewest
+# the batched row takes, keep the phase near its target. The card against
+# the CPU on the first scan: FPFH rows within cosine FPFH_ROW_COS on
+# FPFH_ROW_SHARE of them and a median cosine of FPFH_MEDIAN_COS (the normals
+# agree bit for bit, but the card's atan2 differs by an ulp and a pair near a
+# bin edge moves one bin, in its own row and, weighted, in each neighbour's;
+# a row with few pairs then turns; 99.2 % of the rows read above 0.99 on an
+# H100 80GB HBM3 at 700 W); DIP on its points
+# within CROP_M of the sensor, GeDi on GEDI_POINTS of those within
+# GEDI_CROP_M, SpinNet at SPIN_KEYPOINTS keypoints, each within DESC_COS;
+# mutual NN against the map's descriptors within MAP_CROP_M of the scan, ties
+# within MNN_TIE_RTOL of the mean squared descriptor norm; the FPFH TEASER
+# and PointDSC poses from those pairs, and PointDSC's on a known motion
+# (scan 0's points, 30 % outliers), within BASELINE_POSE_M /
+# BASELINE_POSE_DEG; PointDSC's encoder on the FPFH pairs within PDSC_ATOL.
+GOLDEN_ATOL = {"dip": 1e-4, "gedi_quat": 1e-5, "gedi": 1e-4, "spinnet_trunk": 2e-4, "spinnet_var_to_invar": 1e-5,
+               "pointdsc_encoder": 2e-4, "pointdsc_confidence": 2e-4, "pointdsc_final_trans": 2e-4}
+CORNER_GATE_M, RIGID_ATOL = 0.7, 1e-5
+NODE_BASELINE_SCANS = 2
+FPFH_ROW_COS, FPFH_ROW_SHARE, FPFH_MEDIAN_COS = 0.99, 0.99, 0.999999
+CROP_M, GEDI_CROP_M, GEDI_POINTS, SPIN_KEYPOINTS, MAP_CROP_M = 10.0, 6.0, 500, 64, 35.0
+MNN_TIE_RTOL, PDSC_ATOL = 1e-5, 1e-3
+BASELINE_POSE_M, BASELINE_POSE_DEG = 1e-3, 1e-2
 # Published peaks of an H100 (NVIDIA data sheet, dense, SXM at 700 W): HBM
 # rate, f32 CUDA-core rate and TF32 tensor-core rate. The PCIe card is
 # slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
@@ -1338,6 +1385,419 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     return runs["batched"]["launches"]
 
 
+def make_structured_cloud(rng, n=1200):
+    """A box corner with a sphere: a floor, a wall and a unit sphere with
+    5 mm noise (a copy of `tests/test_fpfh.py:9`, whose conftest imports
+    JAX)."""
+    import numpy as np
+
+    m = n // 3
+    floor = np.c_[rng.uniform(0, 4, (m, 2)), np.zeros((m, 1))]
+    wall_a = np.c_[rng.uniform(0, 4, (m, 1)), np.zeros((m, 1)), rng.uniform(0, 4, (m, 1))]
+    sphere = rng.normal(size=(m, 3))
+    sphere = sphere / np.linalg.norm(sphere, axis=1, keepdims=True) + [2, 2, 1]
+    pts = np.concatenate([floor, wall_a, sphere]).astype(np.float32)
+    return pts + rng.normal(0, 0.005, pts.shape).astype(np.float32)
+
+
+def _pose_gap(a, b):
+    """(translation m, rotation deg) between two poses."""
+    import numpy as np
+
+    chord = np.linalg.norm(np.asarray(a)[:3, :3] - np.asarray(b)[:3, :3])
+    return (float(np.linalg.norm(np.asarray(a)[:3, 3] - np.asarray(b)[:3, 3])),
+            float(np.rad2deg(2 * np.arcsin(min(chord / (2 * np.sqrt(2)), 1.0)))))
+
+
+def _row_cosines(a, b):
+    """Per-row cosine; two zero rows (a point with no neighbour) count as 1."""
+    import numpy as np
+
+    na, nb = np.linalg.norm(a, axis=1), np.linalg.norm(b, axis=1)
+    both_zero = (na == 0) & (nb == 0)
+    return np.where(both_zero, 1.0, (a * b).sum(1) / np.maximum(na * nb, 1e-30))
+
+
+def compare_mutual_nn(dev, f0, f1, mutual, n_points):
+    """`mutual_nn_correspondences` on the card against the CPU on the same
+    descriptors f0 [N0, D], f1 [N1, D] (numpy): rows whose match or mask
+    differ are counted as ties when the two choices are within
+    MNN_TIE_RTOL of the mean squared norm of f1 (forward), or the row is
+    within it of the best reverse match of its target (mutual), or of the
+    n-th distance (top n); any other difference is a failure."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.ops.matching import mutual_nn_correspondences
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+
+    def pad(f):
+        n = bucket_size(f.shape[0])
+        out = torch.zeros((n, f.shape[1]), dtype=torch.float32)
+        out[: f.shape[0]] = torch.from_numpy(f.astype(np.float32))
+        return out, torch.arange(n) < f.shape[0]
+
+    (F0, m0), (F1, m1) = pad(f0), pad(f1)
+    card = mutual_nn_correspondences(F0.to(dev), m0.to(dev), F1.to(dev), m1.to(dev), mutual_filter=mutual,
+                                     n_points=n_points)
+    cpu = mutual_nn_correspondences(F0, m0, F1, m1, mutual_filter=mutual, n_points=n_points)
+    n0 = f0.shape[0]
+    a_idx, a_mask = card.idx1.cpu().numpy()[:n0], card.mask.cpu().numpy()[:n0]
+    b_idx, b_mask = cpu.idx1.numpy()[:n0], cpu.mask.numpy()[:n0]
+    g0, g1 = F0.numpy()[:n0].astype(np.float64), F1.numpy()[: f1.shape[0]].astype(np.float64)
+    eps = MNN_TIE_RTOL * float(np.mean((g1 * g1).sum(1)))
+
+    def d2(i, j):
+        return float(((g0[i] - g1[j]) ** 2).sum())
+
+    nth = None
+    if not mutual:
+        kept = np.sort(cpu.dist.numpy()[:n0][b_mask])
+        nth = kept[-1] if kept.size else 0.0
+    ties = bad = 0
+    for i in np.flatnonzero((a_idx != b_idx) | (a_mask != b_mask)):
+        tie = abs(d2(i, a_idx[i]) - d2(i, b_idx[i])) <= eps
+        if mutual:
+            for j in {int(a_idx[i]), int(b_idx[i])}:
+                rev = ((g1[j] - g0) ** 2).sum(1)
+                tie |= rev[i] - rev.min() <= eps
+        else:
+            tie |= abs(d2(i, a_idx[i]) - nth * nth) <= eps
+        ties += int(tie)
+        bad += int(not tie)
+    return {"mutual": mutual, "rows": n0, "kept_card": int(a_mask.sum()), "kept_cpu": int(b_mask.sum()),
+            "differing_rows": ties + bad, "ties": ties, "non_ties": bad, "ok": bool(bad == 0)}, (a_idx, a_mask)
+
+
+def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
+    """The node_baselines phase: the baseline descriptors and PointDSC.
+
+    1. The four golden state dicts (`tests/golden/{dip,gedi,spinnet,
+       pointdsc}_reference_golden.npz`, the reference torch modules' own
+       layouts) are written to .pt files named by VFMREG_{DIP,GEDI,SPINNET,
+       POINTDSC}_WEIGHTS, so every model below loads as a user's does, at
+       the reference's full widths; each, fed the golden's inputs on the
+       card, reproduces the golden's outputs (GOLDEN_ATOL).
+    2. FPFH + mutual NN + RANSAC recovers the structured corner's transform
+       within the reference test's 0.7 m (`tests/test_fpfh.py:74-108`).
+    3. `RegistrationNode.run_scene` on the node phase's scene, batched, with
+       the reference's default matrix minus FCGF / GCL: RANSAC + ICP over
+       fpfh, dip, gedi, spinnet, vfm; TEASER + ICP over fpfh, vfm; PointDSC
+       + ICP over fpfh. Every pose finite and rigid, the error tables
+       holding every key the reference's make_step writes, GT ICP against
+       the true poses and the vfm rows against GT ICP (the recall gate), B2
+       and B3 launched as the ICP loops count; the baselines' recall and
+       seconds per method and stage reported, not gated (random weights).
+    4. The card against the port's CPU evaluation on the first scan, with
+       the same weights and draws: every extractor's points equal; FPFH
+       rows within cosine FPFH_ROW_COS on FPFH_ROW_SHARE of them and a
+       median of FPFH_MEDIAN_COS; DIP (the scan within CROP_M of its
+       origin), GeDi (GEDI_POINTS of those within GEDI_CROP_M) and SpinNet
+       (SPIN_KEYPOINTS) descriptors within cosine DESC_COS per row where
+       the LRF is well conditioned (at least 4 neighbours; the others
+       counted); mutual NN in both modes the same pairs apart from ties;
+       the FPFH TEASER and PointDSC poses from those pairs, and PointDSC's
+       on a known motion, within BASELINE_POSE_M / BASELINE_POSE_DEG;
+       PointDSC's encoder on the FPFH pairs within PDSC_ATOL.
+    5. B2 and B3 at the fpfh RANSAC refine's start (scan 0, one lane)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.descriptors import dip as ddip
+    from vfmreg_tpu_torch.descriptors import gedi as dgedi
+    from vfmreg_tpu_torch.descriptors import spinnet as dspin
+    from vfmreg_tpu_torch.descriptors.fpfh import extract_fpfh_features
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.kiss import get_voxel_hash_map, voxel_down_sample
+    from vfmreg_tpu_torch.models import dip as mdip
+    from vfmreg_tpu_torch.models import gedi as mgedi
+    from vfmreg_tpu_torch.models import pointdsc as mpd
+    from vfmreg_tpu_torch.models import spinnet as mspin
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops.matching import mutual_nn_correspondences
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+    from vfmreg_tpu_torch.pipeline.registration_node import RegistrationNode
+    from vfmreg_tpu_torch.pipeline.synthetic import scene_file_layout
+    from vfmreg_tpu_torch.registration import icp
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
+    from vfmreg_tpu_torch.registration.ransac import ransac_registration
+    from vfmreg_tpu_torch.registration.teaser import teaser_registration_exact
+
+    weights = tempfile.TemporaryDirectory()
+    golden = {}
+    t0 = time.perf_counter()
+    for name in ("dip", "gedi", "spinnet", "pointdsc"):
+        data = np.load(os.path.join(ROOT, "tests", "golden", f"{name}_reference_golden.npz"))
+        path = os.path.join(weights.name, f"{name}.pt")
+        torch.save({k[4:]: torch.from_numpy(np.array(data[k])) for k in data.files if k.startswith("sd::")}, path)
+        os.environ[f"VFMREG_{name.upper()}_WEIGHTS"] = path
+        golden[name] = {k: data[k] for k in data.files if not k.startswith("sd::")}
+
+    # 1. Goldens on the card, through the users' loaders.
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    errs = {}
+    g = golden["dip"]
+    errs["dip"] = float(np.abs(mdip.dip_forward(ddip.get_dip_net(dev), put(g["patches"].transpose(0, 2, 1)))
+                               .cpu().numpy() - g["descriptors"]).max())
+    g, net = golden["gedi"], dgedi.get_gedi_net(dev)
+    p = put(g["patches"].transpose(0, 2, 1))
+    with torch.no_grad():
+        errs["gedi_quat"] = float(np.abs(net.qnet(p).cpu().numpy() - g["quat"]).max())
+    errs["gedi"] = float(np.abs(mgedi.gedi_forward(net, p).cpu().numpy() - g["descriptors"]).max())
+    g, net = golden["spinnet"], dspin.get_spinnet_net(dev)
+    errs["spinnet_trunk"] = float(np.abs(mspin.spinnet_trunk(net, put(g["new_points"].transpose(0, 2, 3, 1)))
+                                         .cpu().numpy() - g["trunk_out"]).max())
+    errs["spinnet_var_to_invar"] = float(np.abs(mspin.var_to_invar(put(g["vpts"]), 9, 60, 30).cpu().numpy()
+                                                - g["var_to_invar_out"]).max())
+    g, model = golden["pointdsc"], mpd.get_pointdsc_model(dev)
+    src, tgt = g["src"], g["tgt"]
+    d_src = np.linalg.norm(src[:, None] - src[None], axis=-1)
+    d_tgt = np.linalg.norm(tgt[:, None] - tgt[None], axis=-1)
+    compat = np.clip(1.0 - (d_src - d_tgt) ** 2 / 1.2**2, 0.0, None).astype(np.float32)
+    feat, conf = mpd.pointdsc_encode(model.net, put(g["corr_pos"]), put(compat))
+    errs["pointdsc_encoder"] = float(np.abs(feat.cpu().numpy() - g["encoder_feat"]).max())
+    errs["pointdsc_confidence"] = float(np.abs(conf.cpu().numpy() - g["confidence"]).max())
+    n = src.shape[0]
+    out = mpd.pointdsc_forward(model.net, put(g["corr_pos"]), put(src), put(tgt),
+                               torch.ones(n, dtype=torch.bool, device=dev), ratio_num=int(n * 0.1))
+    errs["pointdsc_final_trans"] = float(np.abs(out["final_trans"].cpu().numpy() - g["final_trans"]).max())
+    labels_ok = bool(np.array_equal(out["final_labels"].cpu().numpy(), g["final_labels"].astype(bool)))
+    golden_ok = labels_ok and all(v <= GOLDEN_ATOL[k] for k, v in errs.items())
+    emit({"phase": "node_baselines_golden", "ok": golden_ok, "seconds": time.perf_counter() - t0,
+          "max_abs_err": errs, "atol": GOLDEN_ATOL, "pointdsc_labels_equal": labels_ok})
+    if not golden_ok:
+        raise RuntimeError(f"golden activations on the card: {errs}, labels {labels_ok}")
+
+    # 2. FPFH behaviour: the structured corner's transform.
+    t0 = time.perf_counter()
+    pts = make_structured_cloud(np.random.RandomState(42), n=1500)
+    T = np.eye(4, dtype=np.float32)
+    yaw = np.deg2rad(30.0)
+    T[:3, :3] = [[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]]
+    T[:3, 3] = [1.0, -2.0, 0.3]
+    corner_scan = (pts - T[:3, 3]) @ T[:3, :3]
+    p_map, f_map = extract_fpfh_features(pts, 0.1, device=dev)
+    p_scan, f_scan = extract_fpfh_features(corner_scan, 0.1, device=dev)
+
+    def pad2048(x):
+        out = torch.zeros((2048, x.shape[1]), dtype=torch.float32, device=dev)
+        out[: x.shape[0]] = put(x.astype(np.float32))
+        return out, torch.arange(2048, device=dev) < x.shape[0]
+
+    fs, ms = pad2048(f_scan)
+    fm, mm = pad2048(f_map)
+    mnn = mutual_nn_correspondences(fs, ms, fm, mm, mutual_filter=True, chunk=512)
+    ps, _ = pad2048(p_scan)
+    pm, _ = pad2048(p_map)
+    res = ransac_registration(ps[mnn.idx0], pm[mnn.idx1], mnn.mask,
+                              torch.Generator(device=dev).manual_seed(0), num_hypotheses=2000)
+    corner_err = float(np.linalg.norm(res.pose.cpu().numpy()[:3, 3] - T[:3, 3]))
+    corner_ok = corner_err < CORNER_GATE_M
+    emit({"phase": "node_baselines_fpfh_corner", "ok": corner_ok, "seconds": time.perf_counter() - t0,
+          "translation_error_m": corner_err, "gate_m": CORNER_GATE_M, "correspondences": int(mnn.mask.sum())})
+    if not corner_ok:
+        raise RuntimeError(f"FPFH + mutual NN + RANSAC: translation error {corner_err} m")
+
+    # 3. The scene loop with the baseline matrix.
+    layout = scene_file_layout(scene, local_map)
+    layout = dict(layout, scene_poses=layout["scene_poses"][:NODE_BASELINE_SCANS],
+                  scene_point_clouds=layout["scene_point_clouds"][:NODE_BASELINE_SCANS])
+    true_poses = true_poses[:NODE_BASELINE_SCANS]
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as empty:
+        with contextlib.redirect_stdout(log):
+            node = RegistrationNode(empty, device=dev)
+        poses, gts, maps = {}, {}, []
+        score, accumulate = node.compute_errors, node._accumulate_map
+
+        def recording(gt_pose, pose, method):
+            gts.setdefault(node.scan_idx, np.array(gt_pose))
+            poses.setdefault(method, []).append(np.array(pose))
+            return score(gt_pose, pose, method)
+
+        def keep_map(scn):
+            maps.append(accumulate(scn))
+            return maps[-1]
+
+        node.compute_errors, node._accumulate_map = recording, keep_map
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log), icp.recording_loops() as calls:
+            node.run_scene(layout)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    n_scans = len(layout["scene_poses"])
+    expected = ([f"{m}_ransac{s}" for m in ("fpfh", "dip", "gedi", "spinnet", "vfm") for s in ("", "_icp")]
+                + [f"{m}_teaser{s}" for m in ("fpfh", "vfm") for s in ("", "_icp")]
+                + ["fpfh_pointdsc", "fpfh_pointdsc_icp", "icp"])
+    keys_ok = sorted(node.rot_errors) == sorted(expected) and all(
+        len(node.rot_errors[k]) == len(node.trans_errors[k]) == n_scans for k in expected)
+    rigid = {k: max(float(np.abs(p[:3, :3].T @ p[:3, :3] - np.eye(3)).max()) for p in v) for k, v in poses.items()}
+    finite = all(np.all(np.isfinite(p)) for v in poses.values() for p in v)
+    rigid_ok = finite and all(v < RIGID_ATOL for v in rigid.values())
+    gt_errs = [compute_errors(gts[i], t) for i, t in enumerate(true_poses)]
+    gated = {m: list(zip(node.trans_errors[m], node.rot_errors[m])) for m in ("vfm_ransac_icp", "vfm_teaser_icp")}
+    recall_ok = (len(gt_errs) == n_scans and all(a < RTE_GATE_M and b < RRE_GATE_DEG for a, b in gt_errs)
+                 and all(all(a < RTE_GATE_M and b < RRE_GATE_DEG for a, b in v) for v in gated.values()))
+    loop = collections.Counter()
+    for c in calls:
+        loop.update(c["loop"])
+    loops = loop_check(loop, [i for c in calls for i in c["iterations"]], [k for c in calls for k in c["rebuilds"]],
+                       GN_STEPS_PER_READ, sum(max(c["iterations"]) for c in calls))
+    launches_ok = (launches.get("cosine_argmax", 0) >= node.vfm_searches + 1
+                   and launches.get("gn_moments_from_cache", 0) == loop["step_calls"] > 0
+                   and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"] > 0 and loops["ok"])
+    by_method = {}
+    for k, v in node.stage_seconds.items():
+        for col in ("_ransac_", "_teaser_", "_pointdsc_"):
+            if col in k:
+                head, part = k.split(col, 1)
+                by_method.setdefault(head + col.rstrip("_"), {})[part] = v
+    ok = keys_ok and rigid_ok and recall_ok and launches_ok
+    emit({"phase": "node_baselines", "ok": ok, "seconds": seconds, "scans": n_scans, "keys_ok": keys_ok,
+          "max_rigidity_error": rigid, "rigid_ok": rigid_ok,
+          "gt_rte_m": [e[0] for e in gt_errs], "gt_rre_deg": [e[1] for e in gt_errs],
+          "recall": {m: [node.compute_success_rate(m, *t) for t in ((0.3, 15), (0.6, 1.5), (2, 5))]
+                     for m in node.rot_errors},
+          "seconds_by_method": by_method, "stage_seconds": node.stage_seconds, "launches": launches,
+          "serial_vfm_searches": node.vfm_searches, "icp_calls": len(calls), "icp_loops": loops,
+          "summary": log.getvalue().splitlines()[-26:]})
+    if not ok:
+        raise RuntimeError(f"node_baselines: keys {keys_ok} ({sorted(node.rot_errors)}), rigid {rigid_ok} ({rigid}), "
+                           f"recall {recall_ok} ({gt_errs}, {gated}), launches {launches_ok} ({launches}, {loops})")
+
+    # 4. The card against the CPU on the first scan.
+    t0 = time.perf_counter()
+    scan0 = voxel_down_sample(layout["scene_point_clouds"][0], 0.1)[:, :3].astype(np.float32)
+    crop = scan0[np.linalg.norm(scan0[:, :2], axis=1) < CROP_M]
+    cmp = {}
+
+    def both(fn, *a, **kw):
+        return fn(*a, device=dev, **kw), fn(*a, device="cpu", **kw)
+
+    (pc, fc), (pp, fp) = both(extract_fpfh_features, scan0, 0.1)
+    cos = _row_cosines(fc, fp)
+    cmp["fpfh"] = {"points_equal": bool(np.array_equal(pc, pp)), "rows": int(len(fc)),
+                   "share_within_1e-3": float((np.abs(fc - fp).max(1) < 1e-3).mean()),
+                   "share_cos_above": float((cos >= FPFH_ROW_COS).mean()), "median_cos": float(np.median(cos)),
+                   "min_cos": float(cos.min()), "max_abs_err": float(np.abs(fc - fp).max())}
+    cmp["fpfh"]["ok"] = bool(cmp["fpfh"]["points_equal"] and cmp["fpfh"]["share_cos_above"] >= FPFH_ROW_SHARE
+                             and cmp["fpfh"]["median_cos"] >= FPFH_MEDIAN_COS)
+
+    def learned(name, fn, pts, *a, **kw):
+        (pc_, fc_), (pp_, fp_) = both(fn, pts, *a, **kw)
+        c = _row_cosines(fc_, fp_)
+        # Neighbours within the LRF radius (DIP's kernel, GeDi's 0.5 m).
+        radius = {"dip": mdip.LRF_KERNEL, "gedi": mgedi.R_LRF}.get(name)
+        if radius is not None:
+            d = np.linalg.norm(pc_[:, None, :] - pc_[None, :, :], axis=-1)
+            good = (d <= radius).sum(1) >= 4
+        else:
+            good = np.ones(len(c), bool)
+        r = {"points_equal": bool(np.array_equal(pc_, pp_)), "rows": int(len(c)), "well_conditioned": int(good.sum()),
+             "min_cos_well_conditioned": float(c[good].min()) if good.any() else None,
+             "below_cos_elsewhere": int((c[~good] < DESC_COS).sum()), "max_abs_err": float(np.abs(fc_ - fp_).max())}
+        r["ok"] = bool(r["points_equal"] and good.any() and c[good].min() >= DESC_COS)
+        return r
+
+    cmp["dip"] = learned("dip", ddip.extract_dip_features, crop, 0.1)
+    cmp["gedi"] = learned("gedi", dgedi.extract_gedi_features,
+                          scan0[np.linalg.norm(scan0[:, :2], axis=1) < GEDI_CROP_M], 0.1, n_points=GEDI_POINTS)
+    cmp["spinnet"] = learned("spinnet", dspin.extract_spinnet_features, scan0, SPIN_KEYPOINTS)
+
+    down_map, feats_map = node.map_descriptor_cache["fpfh"]
+    near = np.linalg.norm(down_map[:, :2] - gts[0][:2, 3], axis=1) < MAP_CROP_M
+    mnn_rep, picks = {}, {}
+    for mutual in (True, False):
+        mnn_rep[mutual], picks[mutual] = compare_mutual_nn(dev, fc, feats_map[near], mutual, 5000)
+    cmp["mutual_nn"] = [mnn_rep[True], mnn_rep[False]]
+    dm = down_map[near]
+    idx, keep = picks[True]
+    s_pts, t_pts = pc[keep], dm[idx[keep]]
+    n = len(s_pts)
+    mask = np.ones(n, bool)
+    te_card = teaser_registration_exact(s_pts, t_pts, mask, noise_bound=0.2, device=dev).pose.cpu().numpy()
+    te_cpu = teaser_registration_exact(s_pts, t_pts, mask, noise_bound=0.2, device="cpu").pose.numpy()
+    idx, keep = picks[False]
+    pd_src, pd_tgt = pc[keep], dm[idx[keep]]
+    models = {d: mpd.get_pointdsc_model(d) for d in (dev, "cpu")}
+    pd = {d: m.register(pd_src, pd_tgt) for d, m in models.items()}
+    # The encoder on those pairs (continuous), and the pose on a well-posed
+    # set: scan 0's first 3,000 points under a known motion, 30 % outliers.
+    corr = np.c_[pd_src, pd_tgt].astype(np.float32)
+    corr -= corr.mean(0)
+    dist = [np.linalg.norm(x[:, None] - x[None], axis=-1) for x in (pd_src, pd_tgt)]
+    compat = np.clip(1.0 - (dist[0] - dist[1]) ** 2 / 1.2**2, 0.0, None).astype(np.float32)
+    enc = {d: [t.cpu().numpy() for t in mpd.pointdsc_encode(m.net, torch.from_numpy(corr).to(d),
+                                                              torch.from_numpy(compat).to(d))]
+           for d, m in models.items()}
+    del dist, compat
+    rng = np.random.RandomState(0)
+    motion = np.eye(4)
+    motion[:3, :3] = [[np.cos(0.5), -np.sin(0.5), 0], [np.sin(0.5), np.cos(0.5), 0], [0, 0, 1]]
+    motion[:3, 3] = [3.0, -2.0, 0.5]
+    src_w = scan0[:3000].astype(np.float64)
+    tgt_w = src_w @ motion[:3, :3].T + motion[:3, 3] + rng.normal(0, 0.005, src_w.shape)
+    out_rows = rng.choice(len(src_w), len(src_w) * 3 // 10, replace=False)
+    tgt_w[out_rows] = rng.uniform(tgt_w.min(0), tgt_w.max(0), (len(out_rows), 3))
+    wp = {d: m.register(src_w, tgt_w) for d, m in models.items()}
+    cmp["pointdsc_fpfh_encoder"] = {
+        "max_abs_err_feat": float(np.abs(enc[dev][0] - enc["cpu"][0]).max()),
+        "max_abs_err_confidence": float(np.abs(enc[dev][1] - enc["cpu"][1]).max()),
+        "pairs": int(len(pd_src))}
+    cmp["pointdsc_fpfh_encoder"]["ok"] = bool(cmp["pointdsc_fpfh_encoder"]["max_abs_err_confidence"] <= PDSC_ATOL
+                                              and cmp["pointdsc_fpfh_encoder"]["max_abs_err_feat"] <= PDSC_ATOL)
+    for name, (a, b) in (("teaser_fpfh", (te_card, te_cpu)), ("pointdsc_fpfh", (pd[dev], pd["cpu"])),
+                         ("pointdsc_known_motion", (wp[dev], wp["cpu"]))):
+        gap = _pose_gap(a, b)
+        cmp[name] = {"translation_gap_m": gap[0], "rotation_gap_deg": gap[1],
+                     "ok": bool(gap[0] <= BASELINE_POSE_M and gap[1] <= BASELINE_POSE_DEG)}
+    cmp["pointdsc_known_motion"]["error_to_motion_m_deg"] = _pose_gap(wp[dev], motion)
+    cpu_ok = bool(all(v["ok"] for k, v in cmp.items() if k != "mutual_nn")
+                  and all(r["ok"] for r in cmp["mutual_nn"]))
+    emit({"phase": "node_baselines_vs_cpu", "ok": cpu_ok, "seconds": time.perf_counter() - t0,
+          "scan_points": int(scan0.shape[0]), "crop_points": int(crop.shape[0]), "map_crop_points": int(near.sum()),
+          "compare": cmp, "bounds": {"fpfh_row_cos": FPFH_ROW_COS, "fpfh_row_share": FPFH_ROW_SHARE,
+                                     "fpfh_median_cos": FPFH_MEDIAN_COS, "desc_cos": DESC_COS,
+                                     "pointdsc_atol": PDSC_ATOL,
+                                     "mnn_tie_rtol": MNN_TIE_RTOL, "pose_m": BASELINE_POSE_M,
+                                     "pose_deg": BASELINE_POSE_DEG}})
+    if not cpu_ok:
+        raise RuntimeError(f"node_baselines: the card against the CPU: {cmp}")
+
+    # 5. B2 and B3 at the fpfh RANSAC refine's start: scan 0, one lane.
+    with contextlib.redirect_stdout(io.StringIO()):
+        vmap = get_voxel_hash_map(node.config, device=dev)
+    vmap.add_points(np.ascontiguousarray(maps[0][:, :3]))
+    grid = vmap.device_grid()
+    dv = node._voxelize_scan(scan0)
+    start = poses["fpfh_ransac"][0]
+    w = bucket_size(dv.shape[0])
+    src = torch.zeros((1, w, 3), device=dev)
+    src[0, : dv.shape[0]] = put((dv[:, :3] @ start[:3, :3].T + start[:3, 3]).astype(np.float32))
+    lane_mask = (torch.arange(w, device=dev) < dv.shape[0])[None]
+    group = champion_group(grid)
+    planes, caches = lane_planes(grid, src, lane_mask, group)
+    rows["champions_from_planes"], champs = check_champions_lanes("node_baselines", planes, src, lane_mask, group,
+                                                                  caches, peaks)
+    sigma = node.config.adaptive_threshold.initial_threshold
+    rows["gn_moments_from_cache"] = check_gn_lanes("node_baselines", champs, src, lane_mask, sigma / 3, 3 * sigma,
+                                                   peaks)
+    del planes, caches, champs, grid
+    weights.cleanup()
+    for name in ("dip", "gedi", "spinnet", "pointdsc"):
+        os.environ.pop(f"VFMREG_{name.upper()}_WEIGHTS", None)
+    return launches
+
+
 def drive_odometry(dev, peaks, rows):
     """The odometry phase: `KissICP` with the default config (the map
     resident on the card) over ODO_FRAMES frames of
@@ -1646,6 +2106,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["node"] = {}
     by_path["node"] = drive_node(dev, peaks, rows["node"], *driver_scene)
+    torch.cuda.empty_cache()
+    rows["node_baselines"] = {}
+    by_path["node_baselines"] = drive_node_baselines(dev, peaks, rows["node_baselines"], *driver_scene)
     del driver_scene
     torch.cuda.empty_cache()
     rows["odometry"] = {}

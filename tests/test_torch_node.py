@@ -271,18 +271,25 @@ def test_unported_options_raise(scene_h5, monkeypatch):
     basic = Path(__file__).resolve().parent.parent / "configs" / "basic.yaml"
     assert dataclasses.asdict(load_config(basic)) == dataclasses.asdict(jconfig.load_config(basic))
     node = trn.RegistrationNode(scene_h5, device="cpu", methods_teaser=[("vfm", True)])
-    assert node.methods_ransac == [("vfm", True)] and node.methods_pointdsc == []
+    assert node.methods_ransac == [(m, True) for m in ("fpfh", "dip", "gedi", "spinnet", "vfm")]
+    assert node.methods_pointdsc == [("fpfh", True)]
     with pytest.raises(NotImplementedError, match="A13"):
-        node.teaser_registration(np.zeros((4, 27), np.float32), np.zeros((4, 27), np.float32), "fpfh")
+        node.pointsdc_registration(np.zeros((4, 27), np.float32), np.zeros((4, 27), np.float32), "fcgf", 10)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trn.RegistrationNode(scene_h5)
 
 
-def test_cli_runs_the_folder(scene_h5, tmp_path, capsys):
+def test_cli_runs_the_folder(scene_h5, tmp_path, capsys, monkeypatch):
     folder = tmp_path / "cli"
     folder.mkdir()
     (folder / "scene_000.h5").symlink_to(scene_h5 / "scene_000.h5")
+    # The CLI's default matrix, cut to the vfm columns and one method that is
+    # not ported (the baseline columns' own tests are
+    # tests/test_torch_baselines_node.py).
+    monkeypatch.setattr(trn, "DEFAULT_RANSAC", [("fcgf", True), ("vfm", True)])
+    monkeypatch.setattr(trn, "DEFAULT_TEASER", [("vfm", True)])
+    monkeypatch.setattr(trn, "DEFAULT_POINTDSC", [("fcgf", True)])
     trn.main([str(folder), "--device", "cpu"])
     out = capsys.readouterr().out
     assert "Methods not ported, dropped" in out and "Average time per step" in out

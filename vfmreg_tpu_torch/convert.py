@@ -9,8 +9,10 @@ the descriptor pass's ViT: the reference's parameter pytree, as numpy
 arrays, becomes the port's `models.vit.ViT` state dict;
 `maskclip_params_from_numpy`, `jbu_stack_params_from_numpy` and
 `clip_text_params_from_numpy` do it for MaskCLIP's visual tower, FeatUp's
-JBU stack and CLIP's text tower. Dense weights `w` [in, out] become
-[out, in] as the checkpoints hold them.
+JBU stack and CLIP's text tower, and `{dip,gedi,spinnet,pointdsc}_params_
+from_numpy` for the baseline descriptor networks and PointDSC, whose port
+modules keep the reference checkpoints' own layout. Dense weights `w`
+[in, out] become [out, in] as the checkpoints hold them.
 """
 
 from __future__ import annotations
@@ -158,4 +160,126 @@ def jbu_stack_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Te
             out[f"{p}range_proj.{j}.bias"] = _t(stage[src + "_b"])
     out["fixup_proj.1.weight"] = _t(np.asarray(params["fixup_w"]).T[:, :, None, None])
     out["fixup_proj.1.bias"] = _t(params["fixup_b"])
+    return out
+
+
+# ----- baseline descriptors and PointDSC: the reference's pytrees -> the
+# reference checkpoints' torch layout, which the port's modules keep.
+
+
+def _dense_sd(out, key, p, ndim=2):
+    """A dense {w [in, out], b} as `key.weight` [out, in, 1...] (+ bias)."""
+    w = np.asarray(p["w"]).T
+    out[key + ".weight"] = _t(w.reshape(w.shape + (1,) * (ndim - 2)))
+    if p.get("b") is not None:
+        out[key + ".bias"] = _t(p["b"])
+
+
+def _bn_sd(out, key, p):
+    """A BatchNorm {gamma, beta, mean, var} (affine=False: mean, var)."""
+    if "gamma" in p:
+        out[key + ".weight"] = _t(p["gamma"])
+        out[key + ".bias"] = _t(p["beta"])
+    out[key + ".running_mean"] = _t(p["mean"])
+    out[key + ".running_var"] = _t(p["var"])
+    out[key + ".num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def dip_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`models.dip.DIPNet`'s state dict from the reference's DIP pytree
+    (`init_dip_params` / `load_dip_state_dict`, leaves as numpy arrays).
+    Load with `models.dip.load_dip_state_dict`."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def tower(prefix, p, bn5):
+        for i in (1, 2, 3):
+            _dense_sd(out, f"{prefix}conv{i}.0", p[f"conv{i}"], 3)
+            _bn_sd(out, f"{prefix}conv{i}.1", p[f"bn{i}"])
+        _dense_sd(out, f"{prefix}fc1.0", p["fc1"])
+        _bn_sd(out, f"{prefix}fc1.1", p["bn4"])
+        _dense_sd(out, f"{prefix}fc2.0", p["fc2"])
+        _bn_sd(out, f"{prefix}{bn5}", p["bn5"])
+        _dense_sd(out, f"{prefix}fc3.0", p["fc3"])
+
+    tower("", params, "fc2.2")  # a Dropout at fc2.1 in the main tower
+    tower("stn3d.", params["stn"], "fc2.1")
+    return out
+
+
+def gedi_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`models.gedi.GeDiNet`'s state dict from the reference's GeDi pytree
+    (`init_gedi_params` / `load_gedi_state_dict`, leaves as numpy arrays).
+    Load with `models.gedi.load_gedi_state_dict`."""
+    out: Dict[str, torch.Tensor] = {}
+    q = params["qnet"]
+    for i in (1, 2, 3):
+        _dense_sd(out, f"qnet.conv{i}.0", q[f"conv{i}"], 3)
+        _bn_sd(out, f"qnet.conv{i}.1", q[f"bn{i}"])
+    _dense_sd(out, "qnet.fc1.0", q["fc1"])
+    _bn_sd(out, "qnet.fc1.1", q["bn4"])
+    _dense_sd(out, "qnet.fc2.0", q["fc2"])
+    _bn_sd(out, "qnet.fc2.1", q["bn5"])
+    _dense_sd(out, "qnet.fc3", q["fc3"])
+    for j in (1, 2, 3):
+        for i, layer in enumerate(params[f"sa{j}"]):
+            _dense_sd(out, f"samodule{j}.mlps.0.{3 * i}", layer["conv"], 4)
+            _bn_sd(out, f"samodule{j}.mlps.0.{3 * i + 1}", layer["bn"])
+    for layer, (d, b) in zip(params["fc"], ((0, 1), (3, 4), (7, None))):
+        _dense_sd(out, f"fc_layer.{d}", layer["dense"])
+        if b is not None:
+            _bn_sd(out, f"fc_layer.{b}", layer["bn"])
+    return out
+
+
+def spinnet_params_from_numpy(params: Mapping[str, Any], dim: int = 32) -> Dict[str, torch.Tensor]:
+    """`models.spinnet.SpinNet`'s state dict from the reference's SpinNet
+    pytree (`init_spinnet_params` / `load_spinnet_state_dict`, leaves as
+    numpy arrays): DHWIO / HWIO kernels to OIDHW / OIHW; `bn_mapping`, which
+    the reference's pytree lacks and no forward reads, is the identity.
+    Load with `models.spinnet.load_spinnet_state_dict`."""
+    from vfmreg_tpu_torch.models.spinnet import SpinNet
+
+    out: Dict[str, torch.Tensor] = {
+        "xyz_raising.weight": _t(np.asarray(params["xyz_raising"]["w"]).transpose(3, 2, 0, 1)),
+        "xyz_raising.bias": _t(params["xyz_raising"]["b"]),
+    }
+    _bn_sd(out, "bn_xyz_raising", params["bn_xyz"])
+    _bn_sd(out, "bn_mapping", {"gamma": np.ones(16), "beta": np.zeros(16), "mean": np.zeros(16), "var": np.ones(16)})
+    convs = iter(list(params["conv3d"]) + list(params["conv2d"]))
+    layer = None
+    for i, op in enumerate(SpinNet(dim).conv_net.ops):
+        if isinstance(op, (torch.nn.Conv3d, torch.nn.Conv2d)):
+            layer = next(convs)
+            w = np.asarray(layer["w"])
+            perm = (4, 3, 0, 1, 2) if w.ndim == 5 else (3, 2, 0, 1)
+            out[f"conv_net.ops.{i}.weight"] = _t(w.transpose(perm))
+            out[f"conv_net.ops.{i}.bias"] = _t(layer["b"])
+        elif isinstance(op, (torch.nn.BatchNorm3d, torch.nn.BatchNorm2d)):
+            _bn_sd(out, f"conv_net.ops.{i}", layer["bn"])
+    return out
+
+
+def pointdsc_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`models.pointdsc.PointDSCNet`'s state dict from the reference's
+    PointDSC pytree (`init_pointdsc_params` / `load_pointdsc_state_dict`,
+    leaves as numpy arrays); `sigma_spat`, which no forward reads, is 1.
+    Load with `models.pointdsc.load_pointdsc_state_dict`."""
+    out: Dict[str, torch.Tensor] = {
+        "sigma": _t(params["sigma"]).reshape(1),
+        "sigma_spat": torch.ones(1),
+    }
+    _dense_sd(out, "encoder.layer0", params["layer0"], 3)
+    for i, blk in enumerate(params["blocks"]):
+        pcn, nl = f"encoder.blocks.PointCN_layer_{i}", f"encoder.blocks.NonLocal_layer_{i}"
+        _dense_sd(out, f"{pcn}.0", blk["pointcn"]["dense"], 3)
+        _bn_sd(out, f"{pcn}.1", blk["pointcn"]["bn"])
+        for name in ("q", "k", "v"):
+            _dense_sd(out, f"{nl}.projection_{name}", blk[name], 3)
+        _dense_sd(out, f"{nl}.fc_message.0", blk["msg1"]["dense"], 3)
+        _bn_sd(out, f"{nl}.fc_message.1", blk["msg1"]["bn"])
+        _dense_sd(out, f"{nl}.fc_message.3", blk["msg2"]["dense"], 3)
+        _bn_sd(out, f"{nl}.fc_message.4", blk["msg2"]["bn"])
+        _dense_sd(out, f"{nl}.fc_message.6", blk["msg3"], 3)
+    for layer, j in zip(params["classification"], (0, 2, 4)):
+        _dense_sd(out, f"classification.{j}", layer, 3)
     return out

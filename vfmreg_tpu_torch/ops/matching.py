@@ -72,24 +72,29 @@ def _sq3(v: torch.Tensor) -> torch.Tensor:
     return (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
 
 
+def _sq(v: torch.Tensor) -> torch.Tensor:
+    """|v|^2 over the last axis: `_sq3` for points, a sum for descriptors."""
+    return _sq3(v) if v.shape[-1] == 3 else (v * v).sum(dim=-1)
+
+
 def _chunked_argmin_l2(
     queries: torch.Tensor, database: torch.Tensor, db_mask: torch.Tensor, chunk: int = 4096
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """argmin_j |q_i - d_j|^2 through the -2ab expansion, streamed over the
     database in chunks: (best_d2 [..., N], best_idx [..., N] int64) for
-    queries [..., N, 3], database [..., M, 3] and db_mask [..., M] (leading
+    queries [..., N, D], database [..., M, D] and db_mask [..., M] (leading
     axes broadcast). Masked rows score +inf; the first minimum within a
     chunk and a strict '<' across chunks give the lowest index on ties, as
     the reference's scan does. The expansion cancels at world-scale
     coordinates, so callers centre both clouds first and never gate on
     `best_d2`. Squared norms are written out (`_sq3`), so a row's norm
     does not depend on the batch and padding around it."""
-    q2 = _sq3(queries)
+    q2 = _sq(queries)
     best_val = torch.full(q2.shape, float("inf"), dtype=torch.float32, device=queries.device)
     best_idx = torch.zeros(q2.shape, dtype=torch.int64, device=queries.device)
     for off in range(0, database.shape[-2], chunk):
         db = database[..., off : off + chunk, :]
-        val = _sq3(db)[..., None, :] - 2.0 * (queries @ db.transpose(-1, -2))
+        val = _sq(db)[..., None, :] - 2.0 * (queries @ db.transpose(-1, -2))
         val = torch.where(db_mask[..., None, off : off + chunk], val, float("inf"))
         v, j = torch.min(val, dim=-1)
         better = v < best_val
@@ -149,3 +154,53 @@ def get_vfm_correspondences_batched(
     best_sim = best_sim.reshape(b, n)
     target = map_points[best_idx.to(torch.int64)].reshape(b, n, 3)
     return _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity)
+
+
+class MutualNN(NamedTuple):
+    idx0: torch.Tensor  # [N0] index into cloud 0 (identity order)
+    idx1: torch.Tensor  # [N0] int64 matched index into cloud 1
+    mask: torch.Tensor  # [N0] surviving correspondences
+    dist: torch.Tensor  # [N0] descriptor-space L2 distance
+
+
+# Query rows per block of `mutual_nn_correspondences`' searches: the
+# [rows, chunk] distance block stays within a few hundred MB.
+_MNN_ROWS = 65536
+
+
+def _argmin_rows(queries, database, db_mask, chunk):
+    outs = [_chunked_argmin_l2(queries[i : i + _MNN_ROWS], database, db_mask, chunk)
+            for i in range(0, queries.shape[0], _MNN_ROWS)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def mutual_nn_correspondences(
+    feats0: torch.Tensor,  # [N0, D]
+    mask0: torch.Tensor,  # [N0]
+    feats1: torch.Tensor,  # [N1, D]
+    mask1: torch.Tensor,  # [N1]
+    mutual_filter: bool = True,
+    n_points: int = 5000,
+    chunk: int = 4096,
+) -> MutualNN:
+    """`find_correspondences` (`registration_node.py:482-538`): descriptor-
+    space L2 1-NN from cloud 0 to cloud 1, first index on ties.
+    mutual_filter=True keeps i where NN_1->0(NN_0->1(i)) == i; False keeps
+    the n = min(n_points, n_valid - 1) smallest distances (a stable rank,
+    the lower index first on ties, as `jnp.argsort`)."""
+    f0 = feats0.to(torch.float32)
+    f1 = feats1.to(torch.float32)
+    d2_01, nn01 = _argmin_rows(f0, f1, mask1, chunk)
+    n0 = f0.shape[0]
+    idx0 = torch.arange(n0, device=f0.device)
+    dist = torch.sqrt(torch.clamp(d2_01, min=0.0))
+    if mutual_filter:
+        _, nn10 = _argmin_rows(f1, f0, mask0, chunk)
+        keep = mask0 & (nn10[nn01] == idx0)
+    else:
+        order = torch.sort(torch.where(mask0, dist, _F32_MAX), stable=True).indices
+        rank = torch.empty_like(idx0)
+        rank[order] = idx0
+        n_valid = int(mask0.sum())
+        keep = mask0 & (rank < min(n_points, max(n_valid - 1, 0)))
+    return MutualNN(idx0=idx0, idx1=nn01, mask=keep, dist=dist)

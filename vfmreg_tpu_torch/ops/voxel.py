@@ -21,8 +21,12 @@ _MASK32 = 0xFFFFFFFF
 
 
 def voxel_coords(points: torch.Tensor, voxel_size) -> torch.Tensor:
-    """Integer voxel coordinates, truncated toward zero. (..., 3) f32 -> int32."""
-    return torch.trunc(points / voxel_size).to(torch.int32)
+    """Integer voxel coordinates, truncated toward zero. (..., 3) f32 -> int32.
+    The divisor is a device tensor: on the card a division by a host scalar
+    is a multiplication by its reciprocal, which can move a point on a voxel
+    face to the neighbouring voxel."""
+    size = torch.as_tensor(voxel_size, dtype=points.dtype, device=points.device)
+    return torch.trunc(points / size).to(torch.int32)
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:

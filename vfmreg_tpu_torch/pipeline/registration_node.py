@@ -37,8 +37,9 @@ each stage took.
 `RegistrationNode` is the scene loop around that row (reference
 `registration_node.py:157-1519`): it reads `scene_*.h5` files, accumulates
 the map, runs the method matrix per scan (the batched row, or the serial
-per-scan methods), the serial TEASER column, and keeps the errors, the
-recall summary and the error pickle. Run as the reference's CLI:
+per-scan methods), the baseline descriptors' RANSAC columns, the serial
+TEASER column, the PointDSC column, and keeps the errors, the recall
+summary and the error pickle. Run as the reference's CLI:
 
     python -m vfmreg_tpu_torch.pipeline.registration_node FOLDER [--device cpu]
 
@@ -63,9 +64,12 @@ import torch
 
 from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, MAX_POINTS_PER_VOXEL, VOXEL_SIZE, load_config
 from vfmreg_tpu_torch.data.h5io import read_scenes
+from vfmreg_tpu_torch.descriptors import get_extractor
 from vfmreg_tpu_torch.geometry.metrics import compute_errors, success_rate
 from vfmreg_tpu_torch.ops.hash_grid import HashGrid, build_padded_grid
-from vfmreg_tpu_torch.ops.matching import VFMCorrespondences, get_vfm_correspondences_batched
+from vfmreg_tpu_torch.ops.matching import (
+    VFMCorrespondences, get_vfm_correspondences_batched, mutual_nn_correspondences,
+)
 from vfmreg_tpu_torch.ops.voxel import bucket_size, voxel_down_sample_masked
 from vfmreg_tpu_torch.parallel.mesh import (
     batched_icp_stats,
@@ -378,25 +382,31 @@ class RegistrationNode:
     voxelize, the RobotCar GT fixes, GT ICP from the stored pose, the vfm
     RANSAC column (5 m cosine matches with the 1 m retry, snap, 50,000
     hypotheses from a generator seeded with the scan index, ICP refine), the
-    vfm TEASER column (exact max clique, GNC-TLS, ICP refine) and the
-    two-phase vanilla ICP from the identity; errors against the GT ICP pose,
-    the recall summary, and `dump_errors`' pickle.
+    vfm TEASER column (exact max clique, GNC-TLS, ICP refine), the baseline
+    columns below, and the two-phase vanilla ICP from the identity; errors
+    against the GT ICP pose, the recall summary, and `dump_errors`' pickle.
 
     `batch_scans` (default: on the card, not on the CPU, as the reference
     turns it on for the TPU) runs the GT ICP, vfm RANSAC + refine and vanilla
     rows of a scene as the batched method row (`precompute_scene_batched`,
     which always preprocesses the scans on the device: the rows the host
-    chain keeps). The TEASER column is serial either way. Both paths give
-    the same rows: GT and vanilla ICP bit for bit, RANSAC within the
+    chain keeps). The baseline, TEASER and PointDSC columns are serial
+    either way. Both paths give the same rows: GT and vanilla ICP bit for bit, RANSAC within the
     refine's tolerance (tests, `chip_smoke.py`). `feature_generator`,
     `rng_seed`, `kitti_dir` and `device_preprocess` are accepted for the
     reference's signature and read by nothing that is ported.
 
-    Methods other than vfm drop out of the matrices, as the reference's
-    `available()` drops an extractor that is missing (their descriptors and
-    PointDSC wait for ROADMAP A13). The cluster experiments, scan-to-scan,
-    map sharding (A15) and the visualization dump (A9b) raise.
-    Runs on `device` (default: the card)."""
+    The baseline columns run the reference's default matrix: RANSAC over
+    fpfh, dip, gedi, spinnet (`compute_correspondences`: the extractors of
+    `descriptors/`, the map's descriptors cached per method for the scene,
+    the L2 1-NN), TEASER over fpfh (mutual-filtered correspondences) and
+    PointDSC over fpfh (`pointsdc_registration`; skipped with a message
+    when `VFMREG_POINTDSC_WEIGHTS` names no file, as the reference), each
+    with the ICP refine. FCGF and GCL drop out of the matrices, as the
+    reference's `available()` drops an extractor that is missing (ROADMAP
+    A13b). The cluster experiments, scan-to-scan, map sharding (A15) and
+    the visualization dump (A9b) raise. Runs on `device` (default: the
+    card)."""
 
     # Manual RobotCar GT improvements (`registration_node.py:597-623`).
     _ROBOTCAR_GT_FIX = {
@@ -468,8 +478,17 @@ class RegistrationNode:
         dropped = {}
 
         def available(kind, pairs):
-            dropped[kind] = [m for m, _ in pairs if m != "vfm"]
-            return [(m, icp) for m, icp in pairs if m == "vfm"]
+            """The pairs whose extractor is in the registry (`get_extractor`);
+            the others drop out, as the reference's `available()`."""
+            out = []
+            for m, icp in pairs:
+                try:
+                    if m != "vfm":
+                        get_extractor(m)
+                    out.append((m, icp))
+                except KeyError:
+                    dropped.setdefault(kind, []).append(m)
+            return out
 
         self.methods_ransac = available(
             "ransac", methods_ransac if methods_ransac is not None else DEFAULT_RANSAC)
@@ -477,11 +496,10 @@ class RegistrationNode:
             "teaser", methods_teaser if methods_teaser is not None else DEFAULT_TEASER)
         self.methods_pointdsc = available(
             "pointdsc", methods_pointdsc if methods_pointdsc is not None else DEFAULT_POINTDSC)
-        if any(dropped.values()):
+        if dropped:
             print("Methods not ported, dropped: "
-                  + "; ".join(f"{k} {v}" for k, v in dropped.items() if v)
-                  + " (the baseline descriptors and PointDSC wait for ROADMAP A13, "
-                  "the method matrix beyond the vfm row for A12)")
+                  + "; ".join(f"{k} {v}" for k, v in dropped.items())
+                  + " (FCGF and GCL, the sparse-convolution descriptors, wait for ROADMAP A13b)")
 
         self.config = load_config(None, deskew=False, max_range=None)
         print("Sigma:", self.config.adaptive_threshold.initial_threshold)
@@ -544,6 +562,44 @@ class RegistrationNode:
             self.vfm_searches += 1
         return correspondences
 
+    # Voxel size (m) or keypoint count of each extractor in the scene loop
+    # (`registration_node.py:427-546`).
+    _EXTRACT_ARG = {"fpfh": 0.1, "dip": 0.1, "gedi": 0.1, "fcgf": 0.3, "gcl": 0.3, "spinnet": 7500}
+
+    def compute_correspondences(
+        self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, mutual_filter: bool = False,
+        stage: Optional[str] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Baseline-descriptor correspondences (`registration_node.py:427-546`):
+        the scan's descriptors and the map's (cached per method for the
+        scene), then the L2 1-NN scan -> map, mutual or the 5,000 nearest.
+        `stage` names the column for `stage_seconds`."""
+        if method not in self._EXTRACT_ARG:
+            raise ValueError(f"Invalid method: {method}")
+        stage = stage or f"{method}_correspondences"
+        extractor = get_extractor(method)
+        arg = self._EXTRACT_ARG[method]
+        down_map, feats_map = self.map_descriptor_cache.get(method, (None, None))
+        if down_map is None:
+            down_map, feats_map = extractor(voxel_map, arg, device=self.device)
+            self.map_descriptor_cache[method] = (down_map, feats_map)
+            self._tic(f"{stage}_map_descriptors")
+        down_scan, feats_scan = extractor(raw_scan, arg, device=self.device)
+        self._tic(f"{stage}_scan_descriptors")
+
+        keep, idx1 = self._descriptor_pairs(feats_scan, feats_map, mutual_filter, 5000)
+        self._tic(f"{stage}_match")
+        return down_scan[keep], down_map[idx1[keep]]
+
+    def _descriptor_pairs(self, feats_scan, feats_map, mutual_filter: bool, n_points: int):
+        """(keep [n0] bool, idx1 [n0]) of `mutual_nn_correspondences` between
+        the scan's descriptors [n0, D] and the map's, padded to buckets."""
+        f0, m0 = _pad_rows(feats_scan, self.device)
+        f1, m1 = _pad_rows(feats_map, self.device)
+        mnn = mutual_nn_correspondences(f0, m0, f1, m1, mutual_filter=mutual_filter, n_points=n_points)
+        n0 = feats_scan.shape[0]
+        return mnn.mask[:n0].cpu().numpy(), mnn.idx1[:n0].cpu().numpy()
+
     def _refine(self, voxel_scan, voxel_hash_map, guess: np.ndarray) -> np.ndarray:
         """The ICP refine of a RANSAC or TEASER pose at (3 sigma, sigma / 3),
         from the guess with its rotation orthogonalized in place."""
@@ -555,12 +611,14 @@ class RegistrationNode:
     def ransac_registration(
         self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, run_icp: bool = False
     ):
-        """`ransac_registration` (`registration_node.py:273-357`), vfm."""
-        if method != "vfm":
-            raise _not_ported(f"the {method} descriptor", "A13")
-        src, tgt = self.compute_vfm_correspondences(voxel_map, raw_scan)
+        """`ransac_registration` (`registration_node.py:273-357`)."""
+        stage = "ransac" if method == "vfm" else f"{method}_ransac"
+        if method == "vfm":
+            src, tgt = self.compute_vfm_correspondences(voxel_map, raw_scan)
+        else:
+            src, tgt = self.compute_correspondences(voxel_map[:, :3], raw_scan[:, :3], method, stage=stage)
         print(f"[{method}] Correspondences: {src.shape[0]}")
-        self._tic("ransac_match")
+        self._tic(f"{stage}_match")
 
         voxel_scan = self._voxelize_scan(raw_scan)
         voxel_hash_map = self._map_hash(voxel_map, with_descriptors=False)
@@ -582,22 +640,28 @@ class RegistrationNode:
         res = ransac_registration(snapped_src, snapped_tgt, snap_mask, generator,
                                   num_hypotheses=RANSAC_HYPOTHESES)
         ransac_pose = res.pose.cpu().numpy().astype(np.float64)
-        self._tic("ransac_solve")
+        self._tic(f"{stage}_solve")
         if run_icp:
             pose = self._refine(voxel_scan, voxel_hash_map, ransac_pose)
-            self._tic("ransac_refine")
+            self._tic(f"{stage}_refine")
             return ransac_pose, pose
         return ransac_pose, None
 
     def teaser_registration(
         self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, run_icp: bool = False
     ):
-        """`teaser_registration` (`registration_node.py:91-159`), vfm."""
-        if method != "vfm":
-            raise _not_ported(f"the {method} descriptor", "A13")
-        src, tgt = self.compute_vfm_correspondences(voxel_map, raw_scan)
+        """`teaser_registration` (`registration_node.py:91-159`): vfm, or
+        fpfh with mutual-filtered correspondences."""
+        stage = "teaser" if method == "vfm" else f"{method}_teaser"
+        if method == "fpfh":
+            src, tgt = self.compute_correspondences(voxel_map[:, :3], raw_scan[:, :3], "fpfh",
+                                                    mutual_filter=True, stage=stage)
+        elif method == "vfm":
+            src, tgt = self.compute_vfm_correspondences(voxel_map, raw_scan)
+        else:
+            raise ValueError(f"Invalid method: {method}")
         print(f"[{method}] Correspondences: {src.shape[0]}")
-        self._tic("teaser_match")
+        self._tic(f"{stage}_match")
 
         n = bucket_size(max(src.shape[0], 1))
         s_pts, t_pts = np.zeros((n, 3), np.float32), np.zeros((n, 3), np.float32)
@@ -606,14 +670,50 @@ class RegistrationNode:
         res = teaser_registration_exact(s_pts, t_pts, s_mask, noise_bound=TEASER_NOISE_BOUND,
                                         device=self.device)
         teaser_pose = res.pose.cpu().numpy().astype(np.float64)
-        self._tic("teaser_solve")
+        self._tic(f"{stage}_solve")
         if run_icp:
             voxel_hash_map = self._map_hash(voxel_map, with_descriptors=False)
             voxel_scan = self._voxelize_scan(raw_scan)
             pose = self._refine(voxel_scan, voxel_hash_map, teaser_pose)
-            self._tic("teaser_refine")
+            self._tic(f"{stage}_refine")
             return teaser_pose, pose
         return teaser_pose, None
+
+    def pointsdc_registration(
+        self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, n_points: int, run_icp: bool = False
+    ):
+        """`pointsdc_registration` (`registration_node.py:161-271`): FPFH at
+        0.3 m, normalized, for the scan and the map; each scan descriptor's
+        L2 nearest map descriptor, the n_points nearest kept; PointDSC
+        (`models.pointdsc.get_pointdsc_model`: FileNotFoundError without
+        $VFMREG_POINTDSC_WEIGHTS, as the reference); the ICP refine."""
+        from vfmreg_tpu_torch.models.pointdsc import get_pointdsc_model
+
+        if method != "fpfh":
+            if method == "fcgf":
+                raise _not_ported("the fcgf descriptor", "A13b")
+            raise ValueError(f"Invalid method: {method}")
+        stage = f"{method}_pointdsc"
+        model = get_pointdsc_model(self.device)
+        voxel_hash_map = self._map_hash(voxel_map, with_descriptors=False)
+        extractor = get_extractor(method)
+        src_pts, src_features = extractor(raw_scan[:, :3], 0.3, normalize=True, device=self.device)
+        self._tic(f"{stage}_scan_descriptors")
+        tgt_pts, tgt_features = extractor(voxel_map[:, :3], 0.3, normalize=True, device=self.device)
+        self._tic(f"{stage}_map_descriptors")
+
+        keep, idx1 = self._descriptor_pairs(src_features, tgt_features, False, n_points)
+        src_keypts, tgt_keypts = src_pts[keep], tgt_pts[idx1[keep]]
+        print(f"[{method}] Correspondences: {src_keypts.shape[0]}")
+        self._tic(f"{stage}_match")
+
+        pointdsc_pose = model.register(src_keypts, tgt_keypts).astype(np.float64)
+        self._tic(f"{stage}_solve")
+        if run_icp:
+            pose = self._refine(self._voxelize_scan(raw_scan), voxel_hash_map, pointdsc_pose)
+            self._tic(f"{stage}_refine")
+            return pointdsc_pose, pose
+        return pointdsc_pose, None
 
     def icp_registration(
         self,
@@ -782,7 +882,7 @@ class RegistrationNode:
             print(f'{"--- RANSAC ---":-^80}')
             for method, run_icp in self.methods_ransac:
                 key = f"{method}_ransac"
-                if precomputed is not None:
+                if precomputed is not None and method == "vfm":
                     print(f"[vfm] Correspondences: {precomputed['corr_counts'][i]} (batched)")
                     print(f"[vfm] Correspondences after filtering: {precomputed['snap_counts'][i]}")
                     # The serial path orthogonalizes the RANSAC pose in place
@@ -805,6 +905,17 @@ class RegistrationNode:
                     local_map, point_cloud, method, run_icp
                 )
             tic("teaser")
+            if self.methods_pointdsc:
+                print(f'{"--- PointDSC ---":-^80}')
+                for method, run_icp in self.methods_pointdsc:
+                    key = f"{method}_pointdsc"
+                    try:
+                        results[key], results[f"{key}_icp"] = self.pointsdc_registration(
+                            local_map, point_cloud, method, 10000, run_icp
+                        )
+                    except (ImportError, FileNotFoundError) as e:
+                        print(f"[pointdsc:{method}] skipped: {e}")
+                tic("pointdsc")
             print(f'{"--- Vanilla ICP ---":-^80}')
             if precomputed is not None:
                 results["icp"] = precomputed["icp"][i]
