@@ -45,17 +45,21 @@ odometry B2 and B3, the descriptor passes and featup B5:
   spinnet,pointdsc}_reference_golden.npz`) written to .pt files named by
   `VFMREG_{DIP,GEDI,SPINNET,POINTDSC}_WEIGHTS`, so the models load as a
   user's do, at full width; each reproduces its golden activations on the
-  card (tests/test_reference_goldens.py's tolerances); FPFH + mutual NN +
-  RANSAC recovers the structured corner's transform within 0.7 m
-  (tests/test_fpfh.py's case); `RegistrationNode.run_scene` on the node's
-  scene with the reference's default matrix minus FCGF / GCL (RANSAC + ICP
-  over fpfh, dip, gedi, spinnet, vfm; TEASER + ICP over fpfh, vfm;
-  PointDSC + ICP over fpfh), every pose finite and rigid, every error key
-  of the reference's make_step, GT and vfm rows gated as in node, B2 and
-  B3 launched as the loops count, seconds per method and stage; then the
-  card against the port's CPU evaluation on the first scan (extractor
-  points equal, FPFH rows, DIP / GeDi / SpinNet cosines, mutual NN pairs in
-  both modes apart from ties, the FPFH TEASER and PointDSC poses), and B2
+  card (tests/test_reference_goldens.py's tolerances); FCGF's and GCL's
+  seeded weights written the same way (their goldens stay off the card
+  machine); FPFH + mutual NN + RANSAC recovers the structured corner's
+  transform within 0.7 m (tests/test_fpfh.py's case);
+  `RegistrationNode.run_scene` on the node's scene with the reference's
+  full default matrix (RANSAC + ICP over fpfh, dip, gedi, fcgf, gcl,
+  spinnet, vfm; TEASER + ICP over fpfh, vfm; PointDSC + ICP over fpfh,
+  fcgf) and `dump_viz_dir` set, every pose finite and rigid, every error
+  key of the reference's make_step, GT and vfm rows gated as in node, B2
+  and B3 launched as the loops count, seconds per method and stage, every
+  visualization file parsed against its header; then the card against the
+  port's CPU evaluation on the first scan (extractor points equal, FPFH
+  rows, DIP / GeDi / SpinNet / FCGF / GCL cosines, mutual NN pairs in both
+  modes apart from ties, the FPFH TEASER and PointDSC poses), one level of
+  the sparse convolution at full width on the map against the CPU, and B2
   and B3 at the fpfh RANSAC refine's start;
 * odometry: KISS odometry (`kiss.kiss_icp.KissICP`, the default config:
   100 m range, 1 m voxels, 20 points a voxel, the map resident on the card)
@@ -121,7 +125,8 @@ kernel_check for each kernel on the driver row, driver, driver_retry,
 driver_rematch, node_data, node_batched, node_serial,
 node_serial_vs_batched, kernel_check for B1-B3 at the node's serial shapes,
 node_register_frame_vfm, node_baselines_golden, node_baselines_fpfh_corner,
-node_baselines, node_baselines_vs_cpu, kernel_check for B2 and B3 at the
+node_baselines, node_baselines_vs_cpu, node_baselines_sparse_conv,
+kernel_check for B2 and B3 at the
 fpfh refine's start, odometry_data, odometry, kernel_check for B2 and
 B3 at the odometry's shapes, odometry_free, odometry_idle, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
@@ -221,6 +226,18 @@ FPFH_ROW_COS, FPFH_ROW_SHARE, FPFH_MEDIAN_COS = 0.99, 0.99, 0.999999
 CROP_M, GEDI_CROP_M, GEDI_POINTS, SPIN_KEYPOINTS, MAP_CROP_M = 10.0, 6.0, 500, 64, 35.0
 MNN_TIE_RTOL, PDSC_ATOL = 1e-5, 1e-3
 BASELINE_POSE_M, BASELINE_POSE_DEG = 1e-3, 1e-2
+# FCGF and GCL (seeded weights written to .pt files named by
+# VFMREG_{FCGF,GCL}_WEIGHTS): on the first scan each descriptor row within
+# cosine DESC_COS of the port's CPU evaluation and every entry within
+# RESUNET_ATOL, the points equal. An H100 80GB HBM3 at 700 W read a max abs
+# error of 2.1e-7 (FCGF) and 2.4e-7 (GCL) and cosines of 1 - 7.5e-14; the
+# atol is what catches TF32 matmuls (~1e-3 on these unit-norm rows), which
+# the cosine does not. One level of
+# `sparse_conv_apply_map` at GCL's widest level-0 width (block2_tr.conv1,
+# 128 -> 128 over 27 offsets) on the map's 0.3 m voxels against the CPU:
+# the kernel map equal, the outputs within SPARSE_CONV_ATOL (f32 sums of
+# 3,456 products of unit-scale terms in another order: ~5e-6 typical).
+SPARSE_CONV_ATOL, RESUNET_ATOL = 1e-4, 1e-5
 # Published peaks of an H100 (NVIDIA data sheet, dense, SXM at 700 W): HBM
 # rate, f32 CUDA-core rate and TF32 tensor-core rate. The PCIe card is
 # slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
@@ -1481,13 +1498,17 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
     2. FPFH + mutual NN + RANSAC recovers the structured corner's transform
        within the reference test's 0.7 m (`tests/test_fpfh.py:74-108`).
     3. `RegistrationNode.run_scene` on the node phase's scene, batched, with
-       the reference's default matrix minus FCGF / GCL: RANSAC + ICP over
-       fpfh, dip, gedi, spinnet, vfm; TEASER + ICP over fpfh, vfm; PointDSC
-       + ICP over fpfh. Every pose finite and rigid, the error tables
-       holding every key the reference's make_step writes, GT ICP against
-       the true poses and the vfm rows against GT ICP (the recall gate), B2
-       and B3 launched as the ICP loops count; the baselines' recall and
-       seconds per method and stage reported, not gated (random weights).
+       the reference's full default matrix: RANSAC + ICP over fpfh, dip,
+       gedi, fcgf, gcl, spinnet, vfm; TEASER + ICP over fpfh, vfm; PointDSC
+       + ICP over fpfh, fcgf (FCGF and GCL with seeded weights written to
+       .pt files named by VFMREG_{FCGF,GCL}_WEIGHTS), and `dump_viz_dir`
+       set. Every pose finite and rigid, the error tables holding every key
+       the reference's make_step writes, GT ICP against the true poses and
+       the vfm rows against GT ICP (the recall gate), B2 and B3 launched as
+       the ICP loops count, every file of the visualization dump parsed
+       (the vertices and edges its header counts); the baselines' recall
+       and seconds per method and stage reported, not gated (random
+       weights).
     4. The card against the port's CPU evaluation on the first scan, with
        the same weights and draws: every extractor's points equal; FPFH
        rows within cosine FPFH_ROW_COS on FPFH_ROW_SHARE of them and a
@@ -1498,7 +1519,11 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
        counted); mutual NN in both modes the same pairs apart from ties;
        the FPFH TEASER and PointDSC poses from those pairs, and PointDSC's
        on a known motion, within BASELINE_POSE_M / BASELINE_POSE_DEG;
-       PointDSC's encoder on the FPFH pairs within PDSC_ATOL.
+       PointDSC's encoder on the FPFH pairs within PDSC_ATOL; FCGF and GCL
+       descriptors within cosine DESC_COS per row and RESUNET_ATOL per
+       entry, the points equal. Then
+       GCL's block2_tr.conv1 on the map's 0.3 m voxels, card against CPU
+       (`check_sparse_conv_level`).
     5. B2 and B3 at the fpfh RANSAC refine's start (scan 0, one lane)."""
     import contextlib
     import io
@@ -1508,6 +1533,8 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
     import torch
 
     from vfmreg_tpu_torch.descriptors import dip as ddip
+    from vfmreg_tpu_torch.descriptors import fcgf as dfcgf
+    from vfmreg_tpu_torch.descriptors import gcl as dgcl
     from vfmreg_tpu_torch.descriptors import gedi as dgedi
     from vfmreg_tpu_torch.descriptors import spinnet as dspin
     from vfmreg_tpu_torch.descriptors.fpfh import extract_fpfh_features
@@ -1516,6 +1543,7 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
     from vfmreg_tpu_torch.models import dip as mdip
     from vfmreg_tpu_torch.models import gedi as mgedi
     from vfmreg_tpu_torch.models import pointdsc as mpd
+    from vfmreg_tpu_torch.models import sparse_resunet as mres
     from vfmreg_tpu_torch.models import spinnet as mspin
     from vfmreg_tpu_torch.ops import _build
     from vfmreg_tpu_torch.ops.matching import mutual_nn_correspondences
@@ -1536,6 +1564,11 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
         torch.save({k[4:]: torch.from_numpy(np.array(data[k])) for k in data.files if k.startswith("sd::")}, path)
         os.environ[f"VFMREG_{name.upper()}_WEIGHTS"] = path
         golden[name] = {k: data[k] for k in data.files if not k.startswith("sd::")}
+    for name, cfg in (("fcgf", mres.FCGF_CONFIG), ("gcl", mres.GCL_CONFIG)):
+        net = mres.init_resunet_params(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+        path = os.path.join(weights.name, f"{name}.pt")
+        torch.save({"state_dict": net.state_dict()}, path)  # a MinkowskiEngine checkpoint's nesting
+        os.environ[f"VFMREG_{name.upper()}_WEIGHTS"] = path
 
     # 1. Goldens on the card, through the users' loaders.
     def put(a):
@@ -1610,9 +1643,10 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
                   scene_point_clouds=layout["scene_point_clouds"][:NODE_BASELINE_SCANS])
     true_poses = true_poses[:NODE_BASELINE_SCANS]
     log = io.StringIO()
+    viz = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as empty:
         with contextlib.redirect_stdout(log):
-            node = RegistrationNode(empty, device=dev)
+            node = RegistrationNode(empty, device=dev, dump_viz_dir=viz.name)
         poses, gts, maps = {}, {}, []
         score, accumulate = node.compute_errors, node._accumulate_map
 
@@ -1635,9 +1669,10 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
         seconds = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
     n_scans = len(layout["scene_poses"])
-    expected = ([f"{m}_ransac{s}" for m in ("fpfh", "dip", "gedi", "spinnet", "vfm") for s in ("", "_icp")]
+    expected = ([f"{m}_ransac{s}" for m in ("fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet", "vfm")
+                 for s in ("", "_icp")]
                 + [f"{m}_teaser{s}" for m in ("fpfh", "vfm") for s in ("", "_icp")]
-                + ["fpfh_pointdsc", "fpfh_pointdsc_icp", "icp"])
+                + [f"{m}_pointdsc{s}" for m in ("fpfh", "fcgf") for s in ("", "_icp")] + ["icp"])
     keys_ok = sorted(node.rot_errors) == sorted(expected) and all(
         len(node.rot_errors[k]) == len(node.trans_errors[k]) == n_scans for k in expected)
     rigid = {k: max(float(np.abs(p[:3, :3].T @ p[:3, :3] - np.eye(3)).max()) for p in v) for k, v in poses.items()}
@@ -1661,18 +1696,22 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
             if col in k:
                 head, part = k.split(col, 1)
                 by_method.setdefault(head + col.rstrip("_"), {})[part] = v
-    ok = keys_ok and rigid_ok and recall_ok and launches_ok
+    viz_files = check_viz_dump(viz.name, n_scans)
+    viz.cleanup()
+    ok = keys_ok and rigid_ok and recall_ok and launches_ok and viz_files["ok"]
     emit({"phase": "node_baselines", "ok": ok, "seconds": seconds, "scans": n_scans, "keys_ok": keys_ok,
           "max_rigidity_error": rigid, "rigid_ok": rigid_ok,
           "gt_rte_m": [e[0] for e in gt_errs], "gt_rre_deg": [e[1] for e in gt_errs],
           "recall": {m: [node.compute_success_rate(m, *t) for t in ((0.3, 15), (0.6, 1.5), (2, 5))]
                      for m in node.rot_errors},
-          "seconds_by_method": by_method, "stage_seconds": node.stage_seconds, "launches": launches,
+          "seconds_by_method": by_method, "stage_seconds": node.stage_seconds,
+          "batched_row_seconds": node.batched_stats["seconds"] if node.batched_stats else None, "launches": launches,
           "serial_vfm_searches": node.vfm_searches, "icp_calls": len(calls), "icp_loops": loops,
-          "summary": log.getvalue().splitlines()[-26:]})
+          "viz_dump": viz_files, "summary": log.getvalue().splitlines()[-32:]})
     if not ok:
         raise RuntimeError(f"node_baselines: keys {keys_ok} ({sorted(node.rot_errors)}), rigid {rigid_ok} ({rigid}), "
-                           f"recall {recall_ok} ({gt_errs}, {gated}), launches {launches_ok} ({launches}, {loops})")
+                           f"recall {recall_ok} ({gt_errs}, {gated}), launches {launches_ok} ({launches}, {loops}), "
+                           f"viz {viz_files}")
 
     # 4. The card against the CPU on the first scan.
     t0 = time.perf_counter()
@@ -1692,7 +1731,7 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
     cmp["fpfh"]["ok"] = bool(cmp["fpfh"]["points_equal"] and cmp["fpfh"]["share_cos_above"] >= FPFH_ROW_SHARE
                              and cmp["fpfh"]["median_cos"] >= FPFH_MEDIAN_COS)
 
-    def learned(name, fn, pts, *a, **kw):
+    def learned(name, fn, pts, *a, atol=None, **kw):
         (pc_, fc_), (pp_, fp_) = both(fn, pts, *a, **kw)
         c = _row_cosines(fc_, fp_)
         # Neighbours within the LRF radius (DIP's kernel, GeDi's 0.5 m).
@@ -1706,12 +1745,17 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
              "min_cos_well_conditioned": float(c[good].min()) if good.any() else None,
              "below_cos_elsewhere": int((c[~good] < DESC_COS).sum()), "max_abs_err": float(np.abs(fc_ - fp_).max())}
         r["ok"] = bool(r["points_equal"] and good.any() and c[good].min() >= DESC_COS)
+        if atol is not None:
+            r["atol"] = atol
+            r["ok"] = r["ok"] and r["max_abs_err"] <= atol
         return r
 
     cmp["dip"] = learned("dip", ddip.extract_dip_features, crop, 0.1)
     cmp["gedi"] = learned("gedi", dgedi.extract_gedi_features,
                           scan0[np.linalg.norm(scan0[:, :2], axis=1) < GEDI_CROP_M], 0.1, n_points=GEDI_POINTS)
     cmp["spinnet"] = learned("spinnet", dspin.extract_spinnet_features, scan0, SPIN_KEYPOINTS)
+    cmp["fcgf"] = learned("fcgf", dfcgf.extract_fcgf_features, scan0, 0.3, atol=RESUNET_ATOL)
+    cmp["gcl"] = learned("gcl", dgcl.extract_gcl_features, scan0, 0.3, atol=RESUNET_ATOL)
 
     down_map, feats_map = node.map_descriptor_cache["fpfh"]
     near = np.linalg.norm(down_map[:, :2] - gts[0][:2, 3], axis=1) < MAP_CROP_M
@@ -1766,12 +1810,13 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
     emit({"phase": "node_baselines_vs_cpu", "ok": cpu_ok, "seconds": time.perf_counter() - t0,
           "scan_points": int(scan0.shape[0]), "crop_points": int(crop.shape[0]), "map_crop_points": int(near.sum()),
           "compare": cmp, "bounds": {"fpfh_row_cos": FPFH_ROW_COS, "fpfh_row_share": FPFH_ROW_SHARE,
-                                     "fpfh_median_cos": FPFH_MEDIAN_COS, "desc_cos": DESC_COS,
+                                     "fpfh_median_cos": FPFH_MEDIAN_COS, "desc_cos": DESC_COS, "resunet_atol": RESUNET_ATOL,
                                      "pointdsc_atol": PDSC_ATOL,
                                      "mnn_tie_rtol": MNN_TIE_RTOL, "pose_m": BASELINE_POSE_M,
                                      "pose_deg": BASELINE_POSE_DEG}})
     if not cpu_ok:
         raise RuntimeError(f"node_baselines: the card against the CPU: {cmp}")
+    check_sparse_conv_level(dev, maps[0][:, :3])
 
     # 5. B2 and B3 at the fpfh RANSAC refine's start: scan 0, one lane.
     with contextlib.redirect_stdout(io.StringIO()):
@@ -1793,9 +1838,91 @@ def drive_node_baselines(dev, peaks, rows, scene, local_map, true_poses):
                                                    peaks)
     del planes, caches, champs, grid
     weights.cleanup()
-    for name in ("dip", "gedi", "spinnet", "pointdsc"):
+    for name in ("dip", "gedi", "spinnet", "pointdsc", "fcgf", "gcl"):
         os.environ.pop(f"VFMREG_{name.upper()}_WEIGHTS", None)
     return launches
+
+
+def parse_ply(path):
+    """(vertices, edges) of an ASCII PLY the visualization dump writes; the
+    body must hold exactly the rows its header counts, every vertex finite."""
+    import numpy as np
+
+    with open(path) as f:
+        n_v = n_e = 0
+        for line in f:
+            line = line.strip()
+            if line.startswith("element vertex"):
+                n_v = int(line.split()[-1])
+            elif line.startswith("element edge"):
+                n_e = int(line.split()[-1])
+            elif line == "end_header":
+                break
+        body = [ln.split() for ln in f]
+    if len(body) != n_v + n_e:
+        raise RuntimeError(f"{path}: {len(body)} rows, the header counts {n_v} + {n_e}")
+    verts = np.asarray([[float(x) for x in r[:3]] for r in body[:n_v]]).reshape(-1, 3)
+    if not np.isfinite(verts).all() or any(len(r) != 6 for r in body[:n_v]) or any(len(r) != 2 for r in body[n_v:]):
+        raise RuntimeError(f"{path}: a malformed row")
+    return n_v, n_e
+
+
+def check_viz_dump(root, n_scans):
+    """Every file of `--dump-viz`'s scene 0 parsed: the map, and per scan
+    the scan at GT, at the flagship estimate (vfm RANSAC + ICP) and the
+    correspondence segments (2 vertices an edge)."""
+    scene = os.path.join(root, "scene_000")
+    names = sorted(os.listdir(scene))
+    want = sorted(["map.ply"] + [f"scan_{i:02d}_{k}.ply" for i in range(n_scans)
+                                 for k in ("gt", "est_vfm_ransac_icp", "correspondences")])
+    counts = {n: parse_ply(os.path.join(scene, n)) for n in names}
+    ok = names == want and all(v > 0 for v, _ in counts.values()) and all(
+        (e > 0 and v == 2 * e) if "correspondences" in n else e == 0 for n, (v, e) in counts.items())
+    return {"ok": bool(ok), "files": {n: {"vertices": v, "edges": e} for n, (v, e) in counts.items()}}
+
+
+def check_sparse_conv_level(dev, map_points):
+    """One level of the sparse convolution at full width on the card against
+    the CPU: GCL's block2_tr.conv1 (level 0, 128 -> 128, 27 offsets) on the
+    map's 0.3 m voxels with seeded inputs and weights. The kernel map (exact
+    integer lookups) equal, the outputs within SPARSE_CONV_ATOL."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.descriptors.fcgf import sparse_quantize
+    from vfmreg_tpu_torch.ops.sparse_conv import build_coord_lookup, kernel_map, kernel_offsets, sparse_conv_apply_map
+
+    t0 = time.perf_counter()
+    coords, _ = sparse_quantize(map_points, 0.3)
+    n, c = coords.shape[0], 128
+    gen = torch.Generator().manual_seed(SEED)
+    feats = torch.randn((n, c), generator=gen)
+    weights = torch.randn((27, c, c), generator=gen) * float(np.sqrt(2.0 / (27 * c)))
+
+    def run(d):
+        """(kernel map, output, seconds of the convolution) on device d."""
+        cc = torch.from_numpy(coords).to(d)
+        mask = torch.ones(n, dtype=torch.bool, device=d)
+        rows = kernel_map(build_coord_lookup(cc, mask), mask, cc, mask, kernel_offsets(3, 1))
+        f, w = feats.to(d), weights.to(d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = sparse_conv_apply_map(f, rows, mask, w)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        return rows.cpu().numpy(), res.cpu().numpy(), time.perf_counter() - t1
+
+    (rows_card, out_card, card_s), (rows_cpu, out_cpu, cpu_s) = run(dev), run(torch.device("cpu"))
+    rows_equal = bool(np.array_equal(rows_card, rows_cpu))
+    err = float(np.abs(out_card - out_cpu).max())
+    ok = rows_equal and err <= SPARSE_CONV_ATOL
+    emit({"phase": "node_baselines_sparse_conv", "ok": ok, "seconds": time.perf_counter() - t0, "voxels": n,
+          "channels": c, "offsets": 27, "present_neighbours": int((rows_cpu < n).sum()),
+          "kernel_map_equal": rows_equal, "max_abs_err": err, "atol": SPARSE_CONV_ATOL,
+          "card_conv_seconds": card_s, "cpu_conv_seconds": cpu_s, "max_abs_out": float(np.abs(out_cpu).max())})
+    if not ok:
+        raise RuntimeError(f"sparse convolution level, card against CPU: rows equal {rows_equal}, error {err}")
 
 
 def drive_odometry(dev, peaks, rows):

@@ -4,8 +4,7 @@ A small structured scene (ground, boxes and poles; two posed map clouds,
 two query scans; 8-d positive descriptors) goes through the reference's
 `RegistrationNode` and the port's, serially, on the CPU:
 
-* the default matrix: the reference's minus FCGF and GCL, which drop out
-  with a message naming ROADMAP A13b;
+* the default matrix: the reference's (FCGF and GCL included);
 * `compute_correspondences("fpfh")` fed the reference's FPFH: with the
   5,000 nearest, the reference's pairs in its order; with the mutual
   filter, every pair a mutual 1-NN in f64 up to 1e-4 of the squared
@@ -25,7 +24,14 @@ two query scans; 8-d positive descriptors) goes through the reference's
   keys in its order, finite rigid poses, and seconds per method and stage;
 * the learned extractors' branches (dip, gedi, spinnet) through
   `compute_correspondences` on small clouds: pairs drawn from the clouds'
-  own points, the map's descriptors cached.
+  own points, the map's descriptors cached;
+* the fcgf and gcl RANSAC columns' correspondences, both packages loading
+  one checkpoint file (the golden's state dict, nested under 'state_dict'):
+  the same scan points with the same map partner, apart from scan
+  descriptors whose two nearest map descriptors tie within 1e-5 of the
+  squared distance in f64 (the ResUNets agree within ~3e-7); the fcgf
+  PointDSC column fed the reference's FCGF within the PointDSC bars above;
+  `make_step` over the fcgf / gcl RANSAC and fcgf PointDSC columns.
 """
 
 import numpy as np
@@ -35,8 +41,12 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from pathlib import Path  # noqa: E402
+
 from vfmreg_tpu.data import h5io as jh5  # noqa: E402
+from vfmreg_tpu.descriptors import fcgf as jfcgf  # noqa: E402
 from vfmreg_tpu.descriptors import fpfh as jfpfh  # noqa: E402
+from vfmreg_tpu.descriptors import gcl as jgcl  # noqa: E402
 from vfmreg_tpu.models import pointdsc as jpd  # noqa: E402
 from vfmreg_tpu.pipeline import registration_node as jrn  # noqa: E402
 from vfmreg_tpu.kiss.voxelization import voxel_down_sample  # noqa: E402
@@ -132,14 +142,19 @@ def _close(a, b, atol_m, atol_deg):
     assert np.rad2deg(2 * np.arcsin(min(chord / (2 * np.sqrt(2)), 1.0))) < atol_deg, (a, b)
 
 
-def test_default_matrix_drops_fcgf_and_gcl(scene_h5, capsys):
+def test_default_matrix_drops_fcgf_and_gcl(scene_h5):
+    """Since FCGF and GCL are ported, nothing drops: the port's default
+    matrix is the reference's, and every extractor is the port's."""
     ref, got = _nodes(scene_h5)
-    out = capsys.readouterr().out
-    assert "A13b" in out and "fcgf" in out and "gcl" in out
     for col in ("methods_ransac", "methods_teaser", "methods_pointdsc"):
-        assert getattr(got, col) == [p for p in getattr(ref, col) if p[0] not in ("fcgf", "gcl")], col
-    assert [m for m, _ in got.methods_ransac] == ["fpfh", "dip", "gedi", "spinnet", "vfm"]
-    assert got.methods_teaser == [("fpfh", True), ("vfm", True)] and got.methods_pointdsc == [("fpfh", True)]
+        assert getattr(got, col) == getattr(ref, col), col
+    assert [m for m, _ in got.methods_ransac] == ["fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet", "vfm"]
+    assert got.methods_teaser == [("fpfh", True), ("vfm", True)]
+    assert got.methods_pointdsc == [("fpfh", True), ("fcgf", True)]
+    for m in ("fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet"):
+        assert trn.get_extractor(m).__module__ == f"vfmreg_tpu_torch.descriptors.{m}"
+    with pytest.raises(KeyError):
+        trn.get_extractor("nope")
 
 
 @pytest.fixture(scope="module")
@@ -281,3 +296,83 @@ def test_learned_branches_run(scene_h5, method, n_map, n_scan):
     assert all(tuple(r) in map_rows for r in tgt)
     scan_rows = {tuple(r) for r in np.asarray(scan, np.float64)}
     assert all(tuple(r) in scan_rows for r in src) if method == "spinnet" else len(src) <= len(scan)
+
+
+@pytest.fixture(scope="module")
+def resunet_checkpoints(tmp_path_factory):
+    """One MinkowskiEngine-layout checkpoint file per model, from its golden."""
+    d = tmp_path_factory.mktemp("resunet")
+    out = {}
+    for name in ("fcgf", "gcl"):
+        g = np.load(Path(__file__).resolve().parent / "golden" / f"{name}_reference_golden.npz")
+        out[name] = d / f"{name}.pth"
+        torch.save({"state_dict": {k[4:]: torch.from_numpy(np.array(g[k])) for k in g.files if k.startswith("sd::")}},
+                   out[name])
+    return out
+
+
+@pytest.fixture
+def resunet_weights(resunet_checkpoints, monkeypatch):
+    for name, mod in (("fcgf", jfcgf), ("gcl", jgcl)):
+        monkeypatch.setenv(f"VFMREG_{name.upper()}_WEIGHTS", str(resunet_checkpoints[name]))
+        monkeypatch.setattr(mod, "_PARAMS", None)
+
+
+@pytest.mark.parametrize("method", ["fcgf", "gcl"])
+def test_fcgf_gcl_correspondences_match_reference(scene_h5, pair, resunet_weights, method):
+    local_map, scan = pair
+    kw = dict(methods_ransac=[(method, True)], methods_teaser=[], methods_pointdsc=[])
+    ref, got = _nodes(scene_h5, **kw)
+    want_src, want_tgt = ref.compute_correspondences(local_map[:, :3], scan[:, :3], method)
+    got_src, got_tgt = got.compute_correspondences(local_map[:, :3], scan[:, :3], method)
+    down_map, f_map = got.map_descriptor_cache[method]
+    down_scan, f_scan = trn.get_extractor(method)(scan[:, :3], 0.3, device="cpu")
+    np.testing.assert_array_equal(down_map, ref.map_descriptor_cache[method][0])
+    np.testing.assert_array_equal(got_src, want_src)  # the same scan voxels, in order
+    assert len(down_scan) >= len(got_src) > 100
+    differ = np.flatnonzero((got_tgt != want_tgt).any(1))
+    row = {tuple(r): i for i, r in enumerate(down_map.astype(np.float32))}
+    f_scan, f_map = f_scan.astype(np.float64), f_map.astype(np.float64)
+    for k in differ:
+        d = ((f_scan[k] - f_map) ** 2).sum(1)
+        a, b = row[tuple(got_tgt[k])], row[tuple(want_tgt[k])]
+        assert abs(d[a] - d[b]) <= 1e-5 and min(d[a], d[b]) <= d.min() + 1e-5, (k, d[a], d[b], d.min())
+    assert len(differ) <= 0.02 * len(got_src), len(differ)
+
+
+def test_fcgf_pointdsc_column_matches_reference(scene_h5, pair, pointdsc_weights, resunet_weights, monkeypatch):
+    local_map, scan = pair
+    monkeypatch.setenv("VFMREG_POINTDSC_WEIGHTS", str(pointdsc_weights))
+    kw = dict(methods_ransac=[], methods_teaser=[], methods_pointdsc=[("fcgf", True)])
+    ref, got = _nodes(scene_h5, **kw)
+    # The same FCGF inputs on both sides: the reference's descriptors.
+    monkeypatch.setattr(trn, "get_extractor", lambda name: (
+        lambda pcl, v, device=None: jfcgf.extract_fcgf_features(pcl, v)))
+    want_raw, want_icp = ref.pointsdc_registration(local_map, scan, "fcgf", 10000, True)
+    got_raw, got_icp = got.pointsdc_registration(local_map, scan, "fcgf", 10000, True)
+    np.testing.assert_allclose(got_raw, want_raw, atol=1e-4)
+    _close(got_icp, want_icp, 1e-3, 1e-2)
+
+
+def test_make_step_runs_the_fcgf_gcl_columns(scene_h5, pointdsc_weights, resunet_weights, monkeypatch):
+    monkeypatch.setenv("VFMREG_POINTDSC_WEIGHTS", str(pointdsc_weights))
+    node = trn.RegistrationNode(scene_h5, device="cpu", methods_ransac=[("fcgf", True), ("gcl", True)],
+                                methods_teaser=[], methods_pointdsc=[("fcgf", True)])
+    poses = []
+    score = node.compute_errors
+
+    def recording(gt_pose, pose, method):
+        poses.append(pose)
+        return score(gt_pose, pose, method)
+
+    node.compute_errors = recording
+    node.make_step()
+    assert list(node.rot_errors) == ["fcgf_ransac", "fcgf_ransac_icp", "gcl_ransac", "gcl_ransac_icp",
+                                     "fcgf_pointdsc", "fcgf_pointdsc_icp", "icp"]
+    assert all(len(v) == 2 for v in node.rot_errors.values())
+    for p in poses:
+        assert np.all(np.isfinite(p)) and np.abs(p[:3, :3].T @ p[:3, :3] - np.eye(3)).max() < 1e-5
+    stages = set(node.stage_seconds)
+    for col in ("fcgf_ransac", "gcl_ransac", "fcgf_pointdsc"):
+        assert {f"{col}_map_descriptors", f"{col}_scan_descriptors", f"{col}_match", f"{col}_solve",
+                f"{col}_refine"} <= stages, stages

@@ -24,6 +24,12 @@ PointDSC:
   map-descriptor cache resets per scene; `dump_errors`' pickle reads to the
   same text with both packages' `print_errors`; the options that are not
   ported raise; the CLI runs the folder and writes the pickle;
+* `dump_viz_dir` (the reference, the port serial with the reference's
+  picks, the port batched): the same files; the map's bytes equal; every
+  file parses with the vertex and edge counts of its header
+  (`tests/test_harness.py:589-630`); the correspondence segments the
+  reference's within 1e-3 m serially and the serial ones batched; and the
+  CLI's `--dump-viz` writes them;
 * `pipeline.synthetic.scene_file_layout` keeps one map point per occupied
   0.25 m voxel through `_accumulate_map`.
 """
@@ -42,8 +48,10 @@ import jax  # noqa: E402
 from vfmreg_tpu import config as jconfig  # noqa: E402
 from vfmreg_tpu.data import h5io as jh5  # noqa: E402
 from vfmreg_tpu.kiss.voxelization import _voxel_keys  # noqa: E402
+from vfmreg_tpu.models import pointdsc as jpd  # noqa: E402
 from vfmreg_tpu.pipeline import print_errors as jprint  # noqa: E402
 from vfmreg_tpu.pipeline.registration_node import RegistrationNode as JNode  # noqa: E402
+from vfmreg_tpu_torch import convert  # noqa: E402
 from vfmreg_tpu_torch.config import load_config  # noqa: E402
 from vfmreg_tpu_torch.data import h5io as th5  # noqa: E402
 from vfmreg_tpu_torch.pipeline import print_errors as tprint  # noqa: E402
@@ -129,18 +137,25 @@ def _reference_picks(valid_count, generators, num_hypotheses):
 
 
 @pytest.fixture(scope="module")
-def runs(scene_h5):
-    ref = JNode(scene_h5, **METHODS)
+def viz_dirs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("viz")
+    return {k: d / k for k in ("jax", "serial_reference_picks", "batched")}
+
+
+@pytest.fixture(scope="module")
+def runs(scene_h5, viz_dirs):
+    ref = JNode(scene_h5, dump_viz_dir=viz_dirs["jax"], **METHODS)
     # The single-device reference: the test session's 8-device CPU mesh
     # would shard its RANSAC hypotheses over per-device key streams.
     ref._sharded_ransac = ref._sharded_ransac_batched = ref._sharded_stages = None
     out = {"jax": _run(ref)}
-    for batch in (False, True):
-        out["batched" if batch else "serial"] = _run(trn.RegistrationNode(scene_h5, device="cpu", batch_scans=batch,
-                                                                          **METHODS))
+    out["serial"] = _run(trn.RegistrationNode(scene_h5, device="cpu", batch_scans=False, **METHODS))
+    out["batched"] = _run(trn.RegistrationNode(scene_h5, device="cpu", batch_scans=True,
+                                               dump_viz_dir=viz_dirs["batched"], **METHODS))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(transac, "_draw_picks", _reference_picks)
-        out["serial_reference_picks"] = _run(trn.RegistrationNode(scene_h5, device="cpu", **METHODS))
+        out["serial_reference_picks"] = _run(trn.RegistrationNode(
+            scene_h5, device="cpu", dump_viz_dir=viz_dirs["serial_reference_picks"], **METHODS))
     return out
 
 
@@ -258,23 +273,34 @@ def test_dump_errors_reads_the_same_in_both_packages(runs, tmp_path, capsys):
     assert "Rotation error" in capsys.readouterr().out
 
 
-def test_unported_options_raise(scene_h5, monkeypatch):
+def test_unported_options_raise(scene_h5, tmp_path, monkeypatch):
+    """The A15 options raise; the visualization dump (class and CLI) and the
+    fcgf PointDSC column, which raised before they were ported, run."""
     for kw, item in (({"cluster_removal_prob": 0.5}, "A15"), ({"cluster_insertion_dir": scene_h5}, "A15"),
-                     ({"scan_to_scan": "data"}, "A15"), ({"map_sharding": True}, "A15"),
-                     ({"dump_viz_dir": scene_h5}, "A9b")):
+                     ({"scan_to_scan": "data"}, "A15"), ({"map_sharding": True}, "A15")):
         with pytest.raises(NotImplementedError, match=item):
             trn.RegistrationNode(scene_h5, device="cpu", **kw)
-    for argv, item in ((["--cluster-removal-sweep"], "A15"), (["--dump-viz", "out"], "A9b")):
-        with pytest.raises(NotImplementedError, match=item):
-            trn.main([str(scene_h5), "--device", "cpu", *argv])
+    with pytest.raises(NotImplementedError, match="A15"):
+        trn.main([str(scene_h5), "--device", "cpu", "--cluster-removal-sweep"])
+    node = trn.RegistrationNode(scene_h5, device="cpu", dump_viz_dir=tmp_path / "viz", **METHODS)
+    assert node.dump_viz_dir == tmp_path / "viz"
     # A YAML config now reads as the reference reads it.
     basic = Path(__file__).resolve().parent.parent / "configs" / "basic.yaml"
     assert dataclasses.asdict(load_config(basic)) == dataclasses.asdict(jconfig.load_config(basic))
     node = trn.RegistrationNode(scene_h5, device="cpu", methods_teaser=[("vfm", True)])
-    assert node.methods_ransac == [(m, True) for m in ("fpfh", "dip", "gedi", "spinnet", "vfm")]
-    assert node.methods_pointdsc == [("fpfh", True)]
-    with pytest.raises(NotImplementedError, match="A13"):
-        node.pointsdc_registration(np.zeros((4, 27), np.float32), np.zeros((4, 27), np.float32), "fcgf", 10)
+    assert node.methods_ransac == [(m, True) for m in ("fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet", "vfm")]
+    assert node.methods_pointdsc == [("fpfh", True), ("fcgf", True)]
+    params = jpd.init_pointdsc_params(jax.random.PRNGKey(0))
+    torch.save(convert.pointdsc_params_from_numpy(jax.tree.map(np.asarray, params)), tmp_path / "pointdsc.pt")
+    monkeypatch.setenv("VFMREG_POINTDSC_WEIGHTS", str(tmp_path / "pointdsc.pt"))
+    scene = th5.read_scenes(scene_h5 / "scene_000.h5")
+    local_map = node._accumulate_map(scene)
+    scan = scene["scene_point_clouds"][0][:, :3]
+    raw, refined = node.pointsdc_registration(local_map, scan, "fcgf", 10000, run_icp=True)
+    for p in (raw, refined):
+        assert np.all(np.isfinite(p)) and np.abs(p[:3, :3].T @ p[:3, :3] - np.eye(3)).max() < 1e-5
+    with pytest.raises(ValueError, match="Invalid method"):
+        node.pointsdc_registration(local_map, scan, "gcl", 10)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trn.RegistrationNode(scene_h5)
@@ -284,20 +310,84 @@ def test_cli_runs_the_folder(scene_h5, tmp_path, capsys, monkeypatch):
     folder = tmp_path / "cli"
     folder.mkdir()
     (folder / "scene_000.h5").symlink_to(scene_h5 / "scene_000.h5")
-    # The CLI's default matrix, cut to the vfm columns and one method that is
-    # not ported (the baseline columns' own tests are
-    # tests/test_torch_baselines_node.py).
+    # The CLI's default matrix, cut to the vfm columns, fcgf RANSAC, and
+    # fcgf PointDSC without weights (skipped, as the reference); the baseline
+    # columns' own tests are tests/test_torch_baselines_node.py.
+    monkeypatch.delenv("VFMREG_POINTDSC_WEIGHTS", raising=False)
     monkeypatch.setattr(trn, "DEFAULT_RANSAC", [("fcgf", True), ("vfm", True)])
     monkeypatch.setattr(trn, "DEFAULT_TEASER", [("vfm", True)])
     monkeypatch.setattr(trn, "DEFAULT_POINTDSC", [("fcgf", True)])
     trn.main([str(folder), "--device", "cpu"])
     out = capsys.readouterr().out
-    assert "Methods not ported, dropped" in out and "Average time per step" in out
+    assert "[pointdsc:fcgf] skipped" in out and "Average time per step" in out
     pkls = list(folder.glob("errors_*/mode.pkl"))
     assert len(pkls) == 1
     with open(pkls[0], "rb") as f:
         data = pickle.load(f)
-    assert set(data["rot"]) == {"vfm_ransac", "vfm_ransac_icp", "vfm_teaser", "vfm_teaser_icp", "icp"}
+    assert set(data["rot"]) == {"fcgf_ransac", "fcgf_ransac_icp", "vfm_ransac", "vfm_ransac_icp", "vfm_teaser",
+                                "vfm_teaser_icp", "icp"}
+
+
+def _parse_ply(path):
+    """(vertices [n, 3], edges [e, 2]) of a PLY the dump writes; the body
+    holds exactly the rows its header counts."""
+    with open(path) as f:
+        n_v = n_e = 0
+        for line in f:
+            line = line.strip()
+            if line.startswith("element vertex"):
+                n_v = int(line.split()[-1])
+            elif line.startswith("element edge"):
+                n_e = int(line.split()[-1])
+            elif line == "end_header":
+                break
+        body = [ln.split() for ln in f]
+    assert len(body) == n_v + n_e, path
+    verts = np.asarray([[float(x) for x in r[:3]] for r in body[:n_v]]).reshape(-1, 3)
+    edges = np.asarray([[int(x) for x in r] for r in body[n_v:]], dtype=np.int64).reshape(-1, 2)
+    assert np.isfinite(verts).all()
+    return verts, edges
+
+
+def test_dump_viz_files_match_reference(runs, viz_dirs):
+    trees = {k: sorted(p.relative_to(d).as_posix() for p in d.rglob("*.ply")) for k, d in viz_dirs.items()}
+    want = ["scene_000/map.ply"] + [f"scene_000/scan_{i:02d}_{kind}.ply" for i in range(2)
+                                    for kind in ("correspondences", "est_vfm_ransac_icp", "gt")]
+    assert trees["jax"] == trees["serial_reference_picks"] == trees["batched"] == sorted(want)
+    maps = {k: (d / "scene_000" / "map.ply").read_bytes() for k, d in viz_dirs.items()}
+    assert maps["serial_reference_picks"] == maps["jax"] == maps["batched"]
+    assert _parse_ply(viz_dirs["batched"] / "scene_000" / "map.ply")[0].shape[0] > 100
+    for i in range(2):
+        parsed = {k: _parse_ply(d / "scene_000" / f"scan_{i:02d}_correspondences.ply") for k, d in viz_dirs.items()}
+        for verts, edges in parsed.values():
+            n = edges.shape[0]
+            assert n > 10 and verts.shape[0] == 2 * n
+            np.testing.assert_array_equal(edges, np.c_[np.arange(n), np.arange(n) + n])
+        for a, b in (("serial_reference_picks", "jax"), ("batched", "serial_reference_picks")):
+            assert parsed[a][0].shape == parsed[b][0].shape, (a, b, i)
+            np.testing.assert_allclose(parsed[a][0], parsed[b][0], atol=1e-3)
+        for kind in ("gt", "est_vfm_ransac_icp"):
+            verts = {k: _parse_ply(d / "scene_000" / f"scan_{i:02d}_{kind}.ply")[0] for k, d in viz_dirs.items()}
+            assert verts["jax"].shape[0] > 100
+            for k in ("serial_reference_picks", "batched"):
+                np.testing.assert_allclose(verts[k], verts["jax"], atol=2e-2)  # poses within 1e-3 m, 1e-2 deg
+
+
+def test_cli_dump_viz(scene_h5, tmp_path, monkeypatch):
+    monkeypatch.setattr(trn, "DEFAULT_RANSAC", [("vfm", True)])
+    monkeypatch.setattr(trn, "DEFAULT_TEASER", [])
+    monkeypatch.setattr(trn, "DEFAULT_POINTDSC", [])
+    folder = tmp_path / "cli"
+    folder.mkdir()
+    (folder / "scene_000.h5").symlink_to(scene_h5 / "scene_000.h5")
+    trn.main([str(folder), "--device", "cpu", "--dump-viz", str(tmp_path / "viz")])
+    scene_dir = tmp_path / "viz" / "scene_000"
+    names = sorted(p.name for p in scene_dir.iterdir())
+    assert names == sorted(["map.ply"] + [f"scan_{i:02d}_{k}.ply" for i in range(2)
+                                          for k in ("correspondences", "est_vfm_ransac_icp", "gt")])
+    for name in names:
+        verts, edges = _parse_ply(scene_dir / name)
+        assert verts.shape[0] > 10 and (edges.shape[0] == 0) == ("correspondences" not in name)
 
 
 def test_scene_file_layout_keeps_every_map_point():

@@ -11,7 +11,13 @@
   bit, a loop written here that stops on the reference's cost condition
   and reads the cost every step;
 * `_scalar_tls` within 1e-6 of the reference's on the reference test's
-  voting problem.
+  voting problem;
+* the greedy form: `_consistency_graph` and `_greedy_clique` equal to the
+  reference's on random and planted-clique graphs (ties included: the
+  stable seed order and the first maximum), the growth's early stop equal
+  to the full n steps, and `teaser_registration` at 0 / 50 / 90 % outliers
+  with masked rows and past the 512-node budget: the same inlier mask and
+  poses within 1e-4, on the device of the inputs.
 """
 
 import itertools
@@ -140,3 +146,66 @@ def test_scalar_tls_matches_jax():
     got = float(tteaser._scalar_tls(torch.from_numpy(v), torch.from_numpy(m), torch.tensor(0.05),
                                     torch.tensor(1.0)))
     assert abs(got - ref) < 1e-6 and abs(got - 3.0) < 0.02
+
+
+def _graph_both(adj):
+    return tteaser._greedy_clique(torch.from_numpy(adj)).numpy(), np.asarray(jteaser._greedy_clique(jnp.asarray(adj)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_greedy_clique_matches_jax(seed):
+    rng = np.random.RandomState(seed)
+    for n, p in ((30, 0.5), (90, 0.2), (200, 0.05)):
+        a = rng.rand(n, n) < p
+        a = a | a.T
+        np.fill_diagonal(a, False)
+        got, ref = _graph_both(a)
+        np.testing.assert_array_equal(got, ref)
+        sub = a[np.ix_(np.flatnonzero(got), np.flatnonzero(got))]
+        assert np.all(sub | np.eye(int(got.sum()), dtype=bool))
+    # A planted 12-clique among hubs, and a graph of equal degrees (ties).
+    n = 80
+    a = np.zeros((n, n), dtype=bool)
+    a[:12, :12] = True
+    for h in range(12, 20):
+        others = rng.choice(np.arange(20, n), 40, replace=False)
+        a[h, others] = a[others, h] = True
+    np.fill_diagonal(a, False)
+    got, ref = _graph_both(a)
+    np.testing.assert_array_equal(got, ref)
+    ring = np.zeros((24, 24), dtype=bool)
+    for i in range(24):
+        ring[i, (i + 1) % 24] = ring[(i + 1) % 24, i] = True
+    got, ref = _graph_both(ring)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_consistency_graph_matches_jax():
+    src, tgt = _problem(4, 150, 0.5)
+    mask = np.ones(150, bool)
+    mask[::11] = False
+    ref = np.asarray(jteaser._consistency_graph(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask), 0.05, 1.0))
+    got = tteaser._consistency_graph(torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(mask),
+                                     torch.tensor(0.05), torch.tensor(1.0)).numpy()
+    # The threshold comparison turns on the last ulp of a norm difference
+    # for pairs on its edge: count them, allow no other difference.
+    d_src = np.linalg.norm(src[:, None] - src[None], axis=-1)
+    d_tgt = np.linalg.norm(tgt[:, None] - tgt[None], axis=-1)
+    edge = np.abs(np.abs(d_src - d_tgt) - 0.1) < 1e-5
+    assert np.all((got == ref) | edge) and got.sum() > 0
+
+
+@pytest.mark.parametrize("outlier_frac", [0.0, 0.5, 0.9])
+def test_teaser_greedy_matches_jax(outlier_frac):
+    n = 600 if outlier_frac == 0.5 else 200  # past the 512-node budget once
+    src, tgt = _problem(6, n, outlier_frac)
+    mask = np.ones(n, bool)
+    mask[::37] = False
+    ref = jteaser.teaser_registration(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask), noise_bound=0.05)
+    got = tteaser.teaser_registration(torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(mask),
+                                      noise_bound=0.05)
+    np.testing.assert_array_equal(got.inlier_mask, np.asarray(ref.inlier_mask))
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(ref.pose), atol=1e-4)
+    np.testing.assert_allclose(got.rotation_weights.numpy(), np.asarray(ref.rotation_weights), atol=1e-4)
+    assert got.pose.device.type == "cpu" and got.inlier_mask.sum() >= 15
+    assert got.inlier_mask[~mask].sum() == 0 and got.inlier_mask[np.flatnonzero(mask)[512:]].sum() == 0

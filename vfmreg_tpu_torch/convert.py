@@ -11,7 +11,9 @@ arrays, becomes the port's `models.vit.ViT` state dict;
 `clip_text_params_from_numpy` do it for MaskCLIP's visual tower, FeatUp's
 JBU stack and CLIP's text tower, and `{dip,gedi,spinnet,pointdsc}_params_
 from_numpy` for the baseline descriptor networks and PointDSC, whose port
-modules keep the reference checkpoints' own layout. Dense weights `w`
+modules keep the reference checkpoints' own layout, and
+`resunet_params_from_numpy` for the FCGF / GCL ResUNet (the
+MinkowskiEngine checkpoint's layout). Dense weights `w`
 [in, out] become [out, in] as the checkpoints hold them.
 """
 
@@ -282,4 +284,36 @@ def pointdsc_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Ten
         _dense_sd(out, f"{nl}.fc_message.6", blk["msg3"], 3)
     for layer, j in zip(params["classification"], (0, 2, 4)):
         _dense_sd(out, f"classification.{j}", layer, 3)
+    return out
+
+
+def resunet_params_from_numpy(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """`models.sparse_resunet.SparseResUNet`'s state dict (the
+    MinkowskiEngine checkpoint's layout) from the reference's ResUNet pytree
+    (`init_resunet_params` / `load_me_state_dict`, leaves as numpy arrays)
+    for the configuration `cfg`. Load with
+    `models.sparse_resunet.load_me_state_dict`."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def kern(key, w):
+        w = np.asarray(w)
+        out[key + ".kernel"] = _t(w[0] if w.shape[0] == 1 else w)  # 1 x 1 kernels are 2-D
+
+    def norm(key, p):
+        out[key + ".bn.weight"] = _t(p["gamma"])
+        out[key + ".bn.bias"] = _t(p["beta"])
+        out[key + ".bn.running_mean"] = _t(p["mean"])
+        out[key + ".bn.running_var"] = _t(p["var"])
+        out[key + ".bn.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+    for i in ("1", "2", "3", "4", "4_tr", "3_tr", "2_tr"):
+        kern(f"conv{i}", params[f"conv{i}"])
+        norm(f"norm{i}", params[f"norm{i}"])
+        blk = params[f"block{i}"]
+        for j in (1, 2):
+            kern(f"block{i}.conv{j}", blk[f"conv{j}"])
+            norm(f"block{i}.norm{j}", blk[f"bn{j}"])
+    kern("conv1_tr", params["conv1_tr"])
+    kern("final", params["final"]["w"])
+    out["final.bias"] = _t(params["final"]["b"]).reshape(1, cfg.out_channels)
     return out

@@ -39,9 +39,10 @@ each stage took.
 the map, runs the method matrix per scan (the batched row, or the serial
 per-scan methods), the baseline descriptors' RANSAC columns, the serial
 TEASER column, the PointDSC column, and keeps the errors, the recall
-summary and the error pickle. Run as the reference's CLI:
+summary, the error pickle and, with `dump_viz_dir`, per-scan PLY files.
+Run as the reference's CLI:
 
-    python -m vfmreg_tpu_torch.pipeline.registration_node FOLDER [--device cpu]
+    python -m vfmreg_tpu_torch.pipeline.registration_node FOLDER [--device cpu] [--dump-viz DIR]
 
 (reading the scene files needs `h5py`). `pipeline/synthetic.py` runs the
 batched row on a small synthetic scene.
@@ -169,6 +170,7 @@ def precompute_scene_batched(
     device=None,
     q5_budget: int = 2048,
     grid: Optional[HashGrid] = None,
+    viz: bool = False,
 ) -> Dict:
     """The method row of one scene (see the module docstring).
 
@@ -183,7 +185,9 @@ def precompute_scene_batched(
     Returns the reference's keys: "gt", "vfm_ransac_raw",
     "vfm_ransac_ortho", "vfm_ransac_icp", "icp" ([B, 4, 4] f64),
     "corr_counts", "snap_counts", "map_size", "scan_sizes", "retried",
-    "viz_corr" (None), and "stats": per-stage seconds and, per ICP row, GN
+    "viz_corr" (with `viz`, per scan the snapped pairs RANSAC kept, (src
+    [k, 3], tgt [k, 3]) f32, read with the final read; else None), and
+    "stats": per-stage seconds and, per ICP row, GN
     iterations, settled flags and champion rebuilds per lane, and the row
     loop's counts (`registration.icp.ICPLanes.loop`: kernel B2 step calls,
     device reads, kernel B3 launches, lanes rebuilt and gathered)."""
@@ -291,6 +295,10 @@ def precompute_scene_batched(
 
     # Sync 3: every remaining device result in one read.
     final = torch.cat([snap_mask.sum(dim=1), grid.valid.sum()[None]]).cpu().numpy()
+    viz_corr = None
+    if viz:
+        pairs = [t.cpu().numpy() for t in (snap_src, snap_tgt, snap_mask)]
+        viz_corr = [(pairs[0][j][pairs[2][j]], pairs[1][j][pairs[2][j]]) for j in range(b)]
     tic("final_read")
     rows = {"gt": gt, "refine": refined, "icp": vanilla}
     return {
@@ -304,7 +312,7 @@ def precompute_scene_batched(
         "map_size": int(final[b]),
         "scan_sizes": scan_sizes,
         "retried": retry,
-        "viz_corr": None,
+        "viz_corr": viz_corr,
         "stats": {
             "seconds": seconds,
             "icp_width": W,
@@ -350,7 +358,7 @@ def format_recall_table(table: Dict[str, List[float]]) -> str:
 # ---------------------------------------------------------------------------
 
 TEASER_NOISE_BOUND = 0.2  # registration_node.py:112-127
-# The reference's default method matrices (`registration_node.py:867-917`).
+# The reference's default method matrices (`registration_node.py:255-261`).
 DEFAULT_RANSAC = [(m, True) for m in ("fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet", "vfm")]
 DEFAULT_TEASER = [("fpfh", True), ("vfm", True)]
 DEFAULT_POINTDSC = [("fpfh", True), ("fcgf", True)]
@@ -397,16 +405,20 @@ class RegistrationNode:
     reference's signature and read by nothing that is ported.
 
     The baseline columns run the reference's default matrix: RANSAC over
-    fpfh, dip, gedi, spinnet (`compute_correspondences`: the extractors of
-    `descriptors/`, the map's descriptors cached per method for the scene,
-    the L2 1-NN), TEASER over fpfh (mutual-filtered correspondences) and
-    PointDSC over fpfh (`pointsdc_registration`; skipped with a message
-    when `VFMREG_POINTDSC_WEIGHTS` names no file, as the reference), each
-    with the ICP refine. FCGF and GCL drop out of the matrices, as the
-    reference's `available()` drops an extractor that is missing (ROADMAP
-    A13b). The cluster experiments, scan-to-scan, map sharding (A15) and
-    the visualization dump (A9b) raise. Runs on `device` (default: the
-    card)."""
+    fpfh, dip, gedi, fcgf, gcl, spinnet (`compute_correspondences`: the
+    extractors of `descriptors/`, the map's descriptors cached per method
+    for the scene, the L2 1-NN), TEASER over fpfh (mutual-filtered
+    correspondences) and PointDSC over fpfh and fcgf
+    (`pointsdc_registration`; skipped with a message when
+    `VFMREG_POINTDSC_WEIGHTS` names no file, as the reference), each with
+    the ICP refine. A method whose extractor is not in the registry drops
+    out of the matrices, as in the reference's `available()`.
+
+    `dump_viz_dir` writes per scan the map (once a scene), the scan at GT
+    and at the flagship estimate, and the correspondences of the last
+    RANSAC column (the batched row's vfm pairs) as PLY segment pairs
+    (`_dump_scan_viz`). The cluster experiments, scan-to-scan and map
+    sharding (A15) raise. Runs on `device` (default: the card)."""
 
     # Manual RobotCar GT improvements (`registration_node.py:597-623`).
     _ROBOTCAR_GT_FIX = {
@@ -441,9 +453,10 @@ class RegistrationNode:
             raise _not_ported("scan_to_scan", "A15")
         if map_sharding:
             raise _not_ported("map_sharding", "A15")
-        if dump_viz_dir is not None:
-            raise _not_ported("dump_viz_dir", "A9b")
         self.device = resolve_device(device)
+        self.dump_viz_dir = Path(dump_viz_dir) if dump_viz_dir is not None else None
+        self._viz_corr: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        self._viz_initial = np.eye(4)
         full_precision()
         self.interactive = interactive
         self.viz = viz
@@ -475,11 +488,9 @@ class RegistrationNode:
         self.batched_stats: Optional[Dict] = None
         self.vfm_searches = 0
 
-        dropped = {}
-
-        def available(kind, pairs):
-            """The pairs whose extractor is in the registry (`get_extractor`);
-            the others drop out, as the reference's `available()`."""
+        def available(pairs):
+            """The pairs whose extractor is in the registry (`get_extractor`),
+            as the reference's `available()`."""
             out = []
             for m, icp in pairs:
                 try:
@@ -487,19 +498,12 @@ class RegistrationNode:
                         get_extractor(m)
                     out.append((m, icp))
                 except KeyError:
-                    dropped.setdefault(kind, []).append(m)
+                    pass
             return out
 
-        self.methods_ransac = available(
-            "ransac", methods_ransac if methods_ransac is not None else DEFAULT_RANSAC)
-        self.methods_teaser = available(
-            "teaser", methods_teaser if methods_teaser is not None else DEFAULT_TEASER)
-        self.methods_pointdsc = available(
-            "pointdsc", methods_pointdsc if methods_pointdsc is not None else DEFAULT_POINTDSC)
-        if dropped:
-            print("Methods not ported, dropped: "
-                  + "; ".join(f"{k} {v}" for k, v in dropped.items())
-                  + " (FCGF and GCL, the sparse-convolution descriptors, wait for ROADMAP A13b)")
+        self.methods_ransac = available(methods_ransac if methods_ransac is not None else DEFAULT_RANSAC)
+        self.methods_teaser = available(methods_teaser if methods_teaser is not None else DEFAULT_TEASER)
+        self.methods_pointdsc = available(methods_pointdsc if methods_pointdsc is not None else DEFAULT_POINTDSC)
 
         self.config = load_config(None, deskew=False, max_range=None)
         print("Sigma:", self.config.adaptive_threshold.initial_threshold)
@@ -635,6 +639,9 @@ class RegistrationNode:
             s_pts, t_pts, s_mask, scan_pts, scan_mask, grid.points, grid.valid
         )
         print(f"[{method}] Correspondences after filtering: {int(snap_mask.sum())}")
+        if self.dump_viz_dir is not None:
+            keep = snap_mask.cpu().numpy()
+            self._viz_corr = (snapped_src.cpu().numpy()[keep], snapped_tgt.cpu().numpy()[keep])
 
         generator = torch.Generator(device=dev).manual_seed(self.scan_idx)
         res = ransac_registration(snapped_src, snapped_tgt, snap_mask, generator,
@@ -683,23 +690,23 @@ class RegistrationNode:
         self, voxel_map: np.ndarray, raw_scan: np.ndarray, method: str, n_points: int, run_icp: bool = False
     ):
         """`pointsdc_registration` (`registration_node.py:161-271`): FPFH at
-        0.3 m, normalized, for the scan and the map; each scan descriptor's
-        L2 nearest map descriptor, the n_points nearest kept; PointDSC
-        (`models.pointdsc.get_pointdsc_model`: FileNotFoundError without
-        $VFMREG_POINTDSC_WEIGHTS, as the reference); the ICP refine."""
+        0.3 m, normalized, or FCGF at 0.3 m, for the scan and the map; each
+        scan descriptor's L2 nearest map descriptor, the n_points nearest
+        kept; PointDSC (`models.pointdsc.get_pointdsc_model`:
+        FileNotFoundError without $VFMREG_POINTDSC_WEIGHTS, as the
+        reference); the ICP refine."""
         from vfmreg_tpu_torch.models.pointdsc import get_pointdsc_model
 
-        if method != "fpfh":
-            if method == "fcgf":
-                raise _not_ported("the fcgf descriptor", "A13b")
+        if method not in ("fpfh", "fcgf"):
             raise ValueError(f"Invalid method: {method}")
         stage = f"{method}_pointdsc"
         model = get_pointdsc_model(self.device)
         voxel_hash_map = self._map_hash(voxel_map, with_descriptors=False)
         extractor = get_extractor(method)
-        src_pts, src_features = extractor(raw_scan[:, :3], 0.3, normalize=True, device=self.device)
+        kw = {"normalize": True} if method == "fpfh" else {}
+        src_pts, src_features = extractor(raw_scan[:, :3], 0.3, device=self.device, **kw)
         self._tic(f"{stage}_scan_descriptors")
-        tgt_pts, tgt_features = extractor(voxel_map[:, :3], 0.3, normalize=True, device=self.device)
+        tgt_pts, tgt_features = extractor(voxel_map[:, :3], 0.3, device=self.device, **kw)
         self._tic(f"{stage}_map_descriptors")
 
         keep, idx1 = self._descriptor_pairs(src_features, tgt_features, False, n_points)
@@ -808,6 +815,7 @@ class RegistrationNode:
         res = precompute_scene_batched(
             {"scene_poses": poses, "scene_point_clouds": scene["scene_point_clouds"]},
             scene_local_map, device=self.device, q5_budget=self._q5_budget, grid=grid,
+            viz=self.dump_viz_dir is not None,
         )
         self.batched_stats = res["stats"]
         return res
@@ -939,12 +947,59 @@ class RegistrationNode:
             print(f"Points in map: {local_map.shape}")
             print("=" * 80)
             tic("errors")
+            if self.dump_viz_dir is not None:
+                corr = (precomputed["viz_corr"][i] if precomputed is not None and precomputed.get("viz_corr")
+                        else self._viz_corr)
+                self._viz_initial = initial_pose
+                self._dump_scan_viz(i, local_map, point_cloud, gt_pose, results, corr)
+                self._viz_corr = None
+                tic("dump_viz")
 
         self.scene_idx += 1
         # The cached maps (host arrays and device grids) are per scene.
         self._hash_map_cache.clear()
         self._print_summary()
         tic("errors")
+
+    def _dump_scan_viz(
+        self,
+        scan_idx: int,
+        local_map: np.ndarray,
+        point_cloud: np.ndarray,
+        gt_pose: np.ndarray,
+        results: dict,
+        corr: Optional[Tuple[np.ndarray, np.ndarray]],
+    ) -> None:
+        """This scan's visualization files under
+        `dump_viz_dir/scene_<idx>/` (`registration_node.py:1226-1270`): the
+        scene map (with scan 0), the scan at GT, the scan at the flagship
+        estimate (the refined vfm row when it ran, else the first row there
+        is), and the accepted correspondences as segment pairs."""
+        from vfmreg_tpu_torch.pipeline.visualize_scenes import write_ply, write_ply_segments
+
+        out = self.dump_viz_dir / f"scene_{self.scene_idx:03d}"
+        out.mkdir(parents=True, exist_ok=True)
+        if scan_idx == 0:
+            write_ply(out / "map.ply", local_map[:, :3], color=(90, 120, 230))
+        # `point_cloud` carries the initial guess and gt_pose is a world pose:
+        # express it relative to the initial frame, as the method rows are.
+        write_ply(
+            out / f"scan_{scan_idx:02d}_gt.ply",
+            transform_pcl(point_cloud[:, :3], gt_pose @ np.linalg.inv(self._viz_initial)),
+            color=(80, 200, 80),
+        )
+        if results.get("vfm_ransac_icp") is not None:
+            key = "vfm_ransac_icp"
+        else:
+            key = next((k for k, v in results.items() if v is not None), None)
+        if key is not None:
+            write_ply(
+                out / f"scan_{scan_idx:02d}_est_{key}.ply",
+                transform_pcl(point_cloud[:, :3], results[key]),
+                color=(230, 90, 90),
+            )
+        if corr is not None and corr[0].shape[0] > 0:
+            write_ply_segments(out / f"scan_{scan_idx:02d}_correspondences.ply", corr[0], corr[1])
 
     # ------------------------------------------------------------------ metrics
     def compute_errors(self, pose, gt_pose, method: str) -> Tuple[float, float]:
@@ -1011,7 +1066,8 @@ class RegistrationNode:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     """The reference's CLI (`registration_node.py:1522-1595`) on a folder of
     `scene_*.h5`, plus `--device`: every scene, the average time per step,
-    and the errors pickled to FOLDER/errors_<date>/mode.pkl."""
+    the errors pickled to FOLDER/errors_<date>/mode.pkl, and with
+    `--dump-viz DIR` the per-scan PLY files under DIR."""
     def signal_handler(sig, frame):
         print("Manual termination triggered")
         sys.exit(0)
@@ -1022,18 +1078,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--cluster-removal-sweep", action="store_true",
                         help="The 0..100%% cluster-removal sweep (not ported: ROADMAP A15)")
     parser.add_argument("--dump-viz", type=str, default=None, metavar="DIR",
-                        help="Per-scan visualization PLYs (not ported: ROADMAP A9b)")
+                        help="Write per-scan visualization PLYs (map, scan at GT / estimate, "
+                             "correspondence segments) under DIR")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     if args.cluster_removal_sweep:
         raise _not_ported("--cluster-removal-sweep", "A15")
-    if args.dump_viz:
-        raise _not_ported("--dump-viz", "A9b")
     signal.signal(signal.SIGINT, signal_handler)
 
     datetime_now = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     data_dir = Path(args.folder)
-    node = RegistrationNode(data_dir, args.interactive, 0, None, device=args.device)
+    node = RegistrationNode(data_dir, args.interactive, 0, None, device=args.device,
+                            dump_viz_dir=Path(args.dump_viz) if args.dump_viz else None)
     times = []
     while not node.stop_publishing:
         start = time.time()

@@ -1,14 +1,16 @@
-"""TEASER with exact max-clique inlier selection, GNC-TLS rotation and TLS translation.
+"""TEASER: max-clique inlier selection, GNC-TLS rotation and TLS translation.
 
-Counterpart of `vfmreg_tpu/registration/teaser.py:teaser_registration_exact`
+Counterpart of `vfmreg_tpu/registration/teaser.py`: `teaser_registration_exact`
 (`:222-264`) with `_solve_on_clique`, `_gnc_tls_rotation`, `_scalar_tls`
 and `_tls_translation` (`:92-215`), the solver the reference driver
 configures at `registration_node.py:112-127`: cbar2 = 1, noise_bound = 0.2,
 no scale, PMC exact max clique, CHAIN rotation TIMs, GNC-TLS rotation
-(factor 1.4, cost threshold 1e-16).
+(factor 1.4, cost threshold 1e-16); and the greedy `teaser_registration`
+(`:165-191`) with `_consistency_graph` and `_greedy_clique` (`:42-91`),
+which selects the inliers on the device.
 
-The consistency graph and the maximum clique are host work, as in the
-reference (numpy, `registration.max_clique`). The solve on the clique runs
+In the exact form the consistency graph and the maximum clique are host
+work, as in the reference (numpy, `registration.max_clique`). The solve on the clique runs
 on the given device with `procrustes.weighted_kabsch`. The reference's GNC
 loop stops once the cost changes by at most `cost_threshold` or after
 `max_iters` steps; here it takes its `max_iters` steps on the device with a
@@ -17,7 +19,12 @@ holds, so no step reads the device and a frozen step changes nothing: the
 result equals the stopped loop's. Scalars are f32 tensors, as the
 reference's jitted solve takes them.
 
-The greedy jitted `teaser_registration` (`:165`) waits for ROADMAP A12.
+The greedy form peels the graph three times (degree below half the
+largest), grows a clique from each of the 8 highest-degree nodes by adding
+the candidate with most candidate neighbours, and keeps the largest. Ties go
+as in the reference: stable sorts, the first maximum. Each growth takes at
+most n steps; it stops once no seed has a candidate left, where every
+further step would change nothing.
 """
 
 from __future__ import annotations
@@ -30,12 +37,53 @@ import torch
 from vfmreg_tpu_torch.registration.max_clique import max_clique
 from vfmreg_tpu_torch.registration.procrustes import weighted_kabsch
 from vfmreg_tpu_torch.utils.device import resolve_device
+from vfmreg_tpu_torch.utils.precision import full_precision
 
 
 class TeaserResult(NamedTuple):
     pose: torch.Tensor  # [4, 4] f32, on the solve's device
     inlier_mask: np.ndarray  # [N] bool, clique membership
     rotation_weights: torch.Tensor  # [M] final TLS weights over the TIMs
+
+
+def _consistency_graph(src, tgt, mask, noise_bound, cbar2) -> torch.Tensor:
+    """A[i, j] iff | |src_i - src_j| - |tgt_i - tgt_j| | <= 2 noise_bound
+    sqrt(cbar2), both rows valid, i != j. [N, N] bool."""
+    d_src = torch.linalg.vector_norm(src[:, None, :] - src[None, :, :], dim=-1)
+    d_tgt = torch.linalg.vector_norm(tgt[:, None, :] - tgt[None, :, :], dim=-1)
+    ok = torch.abs(d_src - d_tgt) <= 2.0 * noise_bound * torch.sqrt(cbar2)
+    ok = ok & mask[:, None] & mask[None, :]
+    return ok & ~torch.eye(src.shape[0], dtype=torch.bool, device=src.device)
+
+
+def _degrees(adj: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """[S, N] int64: row i's neighbours among each alive set [S, N], 0 where
+    i is not alive (exact: 0 / 1 products summed in f32 below 2^24)."""
+    deg = alive.to(torch.float32) @ adj.to(torch.float32).T
+    return deg.to(torch.int64) * alive
+
+
+def _greedy_clique(adj: torch.Tensor, n_restarts: int = 8) -> torch.Tensor:
+    """k-core peel + greedy growth from the top-degree seeds. [N] bool."""
+    n = adj.shape[0]
+    alive = torch.ones((1, n), dtype=torch.bool, device=adj.device)
+    for _ in range(3):
+        deg = _degrees(adj, alive)
+        thresh = torch.clamp(torch.amax(deg) // 2, min=1)
+        alive = alive & (deg >= thresh)
+    seeds = torch.argsort(-_degrees(adj, alive)[0], stable=True)[:n_restarts]
+    s = seeds.shape[0]
+    rows = torch.arange(s, device=adj.device)
+    member = torch.zeros((s, n), dtype=torch.bool, device=adj.device)
+    member[rows, seeds] = True
+    cand = adj[seeds] & alive
+    for _ in range(n):
+        cand_deg = _degrees(adj, cand)
+        nxt = torch.argmax(torch.where(cand, cand_deg + 1, 0), dim=1)
+        has = cand[rows, nxt]
+        member[rows, nxt] = member[rows, nxt] | has
+        cand = torch.where(has[:, None], cand & adj[nxt], False)
+    return member[torch.argmax(member.sum(dim=1))]
 
 
 def _residual2(a: torch.Tensor, b: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
@@ -132,6 +180,40 @@ def _solve_on_clique(src_s, tgt_s, clique, noise_bound, cbar2, gnc_factor, max_i
     pose[:3, :3] = R
     pose[:3, 3] = t
     return pose, w
+
+
+def teaser_registration(
+    src: torch.Tensor,  # [N, 3]
+    tgt: torch.Tensor,  # [N, 3]
+    mask: torch.Tensor,  # [N]
+    noise_bound=0.2,
+    cbar2=1.0,
+    gnc_factor=1.4,
+    max_iters: int = 100,
+    cost_threshold=1e-16,
+    max_graph_nodes: int = 512,
+) -> TeaserResult:
+    """TEASER with the greedy clique, on the tensors' device: the valid
+    rows, front-compacted in order, cut to `max_graph_nodes`; the
+    consistency graph, `_greedy_clique` and the solve on it."""
+    full_precision()
+    dev = src.device
+    src = src.to(torch.float32)
+    tgt = tgt.to(torch.float32)
+    mask = mask.to(torch.bool)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    order = torch.sort((~mask).to(torch.int32), stable=True).indices[:max_graph_nodes]
+    src_s, tgt_s, mask_s = src[order], tgt[order], mask[order]
+    adj = _consistency_graph(src_s, tgt_s, mask_s, f32(noise_bound), f32(cbar2))
+    clique = _greedy_clique(adj) & mask_s
+    pose, w = _solve_on_clique(src_s, tgt_s, clique, f32(noise_bound), f32(cbar2), f32(gnc_factor), max_iters,
+                               f32(cost_threshold))
+    inlier_full = np.zeros(mask.shape[0], dtype=bool)
+    inlier_full[order.cpu().numpy()] = clique.cpu().numpy()
+    return TeaserResult(pose=pose, inlier_mask=inlier_full, rotation_weights=w)
 
 
 def teaser_registration_exact(
