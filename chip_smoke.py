@@ -12,7 +12,7 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives ten paths. The first four run B1-B3, the
+one-lane entries), and drives eleven paths. The first five run B1-B3, the
 odometry B2 and B3, the descriptor passes and featup B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
@@ -61,6 +61,19 @@ odometry B2 and B3, the descriptor passes and featup B5:
   modes apart from ties, the FPFH TEASER and PointDSC poses), one level of
   the sparse convolution at full width on the map against the CPU, and B2
   and B3 at the fpfh RANSAC refine's start;
+* node_experiments: the same scene loop on the node's scene (2 scans) in
+  the reference's experiment modes, each serial, with the vfm RANSAC and
+  TEASER columns: cluster removal at p = 0.5 on the map with 6 planted
+  trees (descriptor columns 0-2 the reference's tree colours, the
+  generator's PCA fit set on them; host PCA colours, region growth on the
+  native KD-tree, HDBSCAN), insertion of 5 tree clusters from .npy files,
+  scan-to-scan on the scene's nearest map cloud and on 12 SyntheticDrive
+  sweeps written as KITTI .bin frames: HDBSCAN finds every tree, each
+  removal takes some and leaves some, `points_in_map` equals a rerun of
+  the same host helpers, every GT-ICP lane within the recall gate (the
+  KITTI pair's against the drive's motion), every pose finite and rigid,
+  B1-B3 launched as the searches and loops count in each mode, seconds per
+  mode with the host clustering apart, and B1-B3 at the removal's shapes;
 * odometry: KISS odometry (`kiss.kiss_icp.KissICP`, the default config:
   100 m range, 1 m voxels, 20 points a voxel, the map resident on the card)
   over a 200-frame drive of `pipeline.synthetic.SyntheticDrive` (122,880
@@ -127,7 +140,10 @@ node_serial_vs_batched, kernel_check for B1-B3 at the node's serial shapes,
 node_register_frame_vfm, node_baselines_golden, node_baselines_fpfh_corner,
 node_baselines, node_baselines_vs_cpu, node_baselines_sparse_conv,
 kernel_check for B2 and B3 at the
-fpfh refine's start, odometry_data, odometry, kernel_check for B2 and
+fpfh refine's start, node_experiments_data, node_experiments_removal,
+node_experiments_insertion, node_experiments_scan_to_scan_data,
+node_experiments_scan_to_scan_kitti, kernel_check for B1-B3 at the
+removal's shapes, odometry_data, odometry, kernel_check for B2 and
 B3 at the odometry's shapes, odometry_free, odometry_idle, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
 [2, 200, 4, 32] and at T = 320, descriptor, kernel_check for B5 at the
@@ -238,6 +254,20 @@ BASELINE_POSE_M, BASELINE_POSE_DEG = 1e-3, 1e-2
 # the kernel map equal, the outputs within SPARSE_CONV_ATOL (f32 sums of
 # 3,456 products of unit-scale terms in another order: ~5e-6 typical).
 SPARSE_CONV_ATOL, RESUNET_ATOL = 1e-4, 1e-5
+# node_experiments phase: the node's scene cut to EXP_SCANS scans, with
+# EXP_TREES vertical clusters of EXP_TREE_POINTS points planted in the map
+# (a trunk of r 0.3 m to 3 m under a crown of r 2 m at 5 m), each whose
+# descriptor columns 0-2 are one of the reference's tree colours over 255;
+# every other row's columns 0-2 lie more than 86 colour units from both
+# (column 1 >= 0.75), and two anchor rows at 0 and 1 fix the min-max
+# normalisation of the generator's PCA fit, the projection onto columns 0-2.
+# Removal at EXP_REMOVAL_P; insertion at EXP_INSERT_P of EXP_INSERT_FILES
+# such clusters as .npy files; scan-to-scan on the data and on
+# EXP_KITTI_FRAMES SyntheticDrive sweeps as KITTI .bin files (the reference
+# draws the first frame among all but the last 10).
+EXP_SCANS, EXP_TREES, EXP_TREE_POINTS, EXP_REMOVAL_P, EXP_INSERT_P = 2, 6, 3000, 0.5, 0.05
+EXP_INSERT_FILES, EXP_KITTI_FRAMES = 5, 12
+EXP_TREE_COLORS = ((217, 60, 165), (118, 105, 57))
 # Published peaks of an H100 (NVIDIA data sheet, dense, SXM at 700 W): HBM
 # rate, f32 CUDA-core rate and TF32 tensor-core rate. The PCIe card is
 # slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
@@ -1229,6 +1259,48 @@ def drive_driver_paths(dev, scene, lm, true_poses):
             raise RuntimeError(f"driver {name} path: taken {taken}, B1 launches {launches}, errors {errs}")
 
 
+def check_serial_kernels(path, dev, peaks, rows, node, local_map, scan, gt_pose):
+    """B1-B3 at a serial column's shapes: the scan's 5 m queries (after the
+    node's 0.1 m and double voxelize) padded to a bucket against the grid of
+    `local_map` (B1), and one lane at the scan's ICP width at `gt_pose` (B2,
+    B3). Fills rows[kernel]; returns the map's VoxelHashMap."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.kiss import get_voxel_hash_map, voxel_down_sample
+    from vfmreg_tpu_torch.ops import matching
+    from vfmreg_tpu_torch.ops.matching import l2_normalize
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+    from vfmreg_tpu_torch.registration.icp import champion_group
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        vmap = get_voxel_hash_map(node.config, device=dev)
+    vmap.add_points(local_map)
+    grid = vmap.device_grid()
+    dv = node._double_voxelize(voxel_down_sample(scan, 0.1))
+    q5 = voxel_down_sample(dv, 5.0)
+    n_q = bucket_size(q5.shape[0])
+    qf = torch.zeros((n_q, q5.shape[1] - 3), device=dev)
+    qf[: q5.shape[0]] = torch.from_numpy(q5[:, 3:]).to(dev)
+    live = torch.arange(n_q, device=dev) < q5.shape[0]
+    qn = torch.cat([l2_normalize(qf[i : i + matching._NORM_ROWS])
+                    for i in range(0, n_q, matching._NORM_ROWS)]).contiguous()
+    rows["cosine_argmax"] = check_cosine(path, qn, l2_normalize(grid.feats).contiguous(), grid.valid, live, peaks)
+    w = bucket_size(dv.shape[0])
+    src = torch.zeros((1, w, 3), device=dev)
+    src[0, : dv.shape[0]] = torch.from_numpy((dv[:, :3] @ gt_pose[:3, :3].T + gt_pose[:3, 3]).astype(np.float32)).to(dev)
+    mask = (torch.arange(w, device=dev) < dv.shape[0])[None]
+    group = champion_group(grid)
+    planes, caches = lane_planes(grid, src, mask, group)
+    rows["champions_from_planes"], champs = check_champions_lanes(path, planes, src, mask, group, caches, peaks)
+    sigma = node.config.adaptive_threshold.initial_threshold
+    rows["gn_moments_from_cache"] = check_gn_lanes(path, champs, src, mask, sigma / 3, 3 * sigma, peaks)
+    return vmap
+
+
 def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     """The node phase: the driver scene in a scene file's layout
     (`pipeline.synthetic.scene_file_layout`) through
@@ -1248,16 +1320,13 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     import torch
 
     from vfmreg_tpu_torch.geometry.metrics import compute_errors
-    from vfmreg_tpu_torch.kiss import get_voxel_hash_map, register_frame, voxel_down_sample
+    from vfmreg_tpu_torch.kiss import register_frame
     from vfmreg_tpu_torch.kiss.voxelization import _voxel_keys
     from vfmreg_tpu_torch.ops import _build
-    from vfmreg_tpu_torch.ops import matching
-    from vfmreg_tpu_torch.ops.matching import l2_normalize
-    from vfmreg_tpu_torch.ops.voxel import bucket_size
     from vfmreg_tpu_torch.pipeline.registration_node import RegistrationNode
     from vfmreg_tpu_torch.pipeline.synthetic import scene_file_layout
     from vfmreg_tpu_torch.registration import icp
-    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ
 
     t0 = time.perf_counter()
     layout = scene_file_layout(scene, local_map)
@@ -1349,36 +1418,11 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     if not same_ok:
         raise RuntimeError(f"node: serial != batched (GT {gt_equal}, icp {icp_equal}, RANSAC gap {ransac_gap})")
 
-    # The kernels at the serial column's shapes: scan 0's 5 m queries padded
-    # to a bucket against the node's map (B1), and one lane at scan 0's ICP
-    # width at the GT ICP's start (B2, B3).
+    # The kernels at the serial column's shapes.
     node = runs["serial"]["node"]
-    acc = runs["serial"]["map"]
-    with contextlib.redirect_stdout(io.StringIO()):
-        vmap = get_voxel_hash_map(node.config, device=dev)
-    vmap.add_points(acc)
-    grid = vmap.device_grid()
-    scan0 = voxel_down_sample(layout["scene_point_clouds"][0], 0.1)
-    dv = node._double_voxelize(scan0)
-    q5 = voxel_down_sample(dv, 5.0)
-    n_q = bucket_size(q5.shape[0])
-    qf = torch.zeros((n_q, q5.shape[1] - 3), device=dev)
-    qf[: q5.shape[0]] = torch.from_numpy(q5[:, 3:]).to(dev)
-    live = torch.arange(n_q, device=dev) < q5.shape[0]
-    qn = torch.cat([l2_normalize(qf[i : i + matching._NORM_ROWS])
-                    for i in range(0, n_q, matching._NORM_ROWS)]).contiguous()
-    rows["cosine_argmax"] = check_cosine("node", qn, l2_normalize(grid.feats).contiguous(), grid.valid, live, peaks)
-    w = bucket_size(dv.shape[0])
-    gt0 = runs["serial"]["gts"][0]
-    src = torch.zeros((1, w, 3), device=dev)
-    src[0, : dv.shape[0]] = torch.from_numpy((dv[:, :3] @ gt0[:3, :3].T + gt0[:3, 3]).astype(np.float32)).to(dev)
-    mask = (torch.arange(w, device=dev) < dv.shape[0])[None]
-    group = champion_group(grid)
-    planes, caches = lane_planes(grid, src, mask, group)
-    rows["champions_from_planes"], champs = check_champions_lanes("node", planes, src, mask, group, caches, peaks)
     sigma = node.config.adaptive_threshold.initial_threshold
-    rows["gn_moments_from_cache"] = check_gn_lanes("node", champs, src, mask, sigma / 3, 3 * sigma, peaks)
-    del planes, caches, champs, grid
+    vmap = check_serial_kernels("node", dev, peaks, rows, node, runs["serial"]["map"],
+                                layout["scene_point_clouds"][0], runs["serial"]["gts"][0])
 
     # register_frame's VFM branch: scan 1 with its descriptors, from its stored pose.
     _build.reset_launches()
@@ -1400,6 +1444,239 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     if not vfm_ok:
         raise RuntimeError(f"register_frame's VFM branch: rte {rte}, rre {rre}, launches {launches}")
     return runs["batched"]["launches"]
+
+
+def exp_tree(rng, center_xy, colour, d, n=EXP_TREE_POINTS):
+    """A planted tree [n, 3 + d]: a trunk (a third of the points) under a
+    crown, the descriptor's columns 0-2 `colour` over 255, the rest small
+    positive noise."""
+    import numpy as np
+
+    n_trunk = n // 3
+    ang = rng.uniform(0, 2 * np.pi, n_trunk)
+    rad = 0.3 * np.sqrt(rng.uniform(0, 1, n_trunk))
+    trunk = np.c_[rad * np.cos(ang), rad * np.sin(ang), rng.uniform(0, 3, n_trunk)]
+    v = rng.normal(size=(n - n_trunk, 3))
+    v *= (2.0 * rng.uniform(0, 1, (n - n_trunk, 1)) ** (1 / 3)) / np.linalg.norm(v, axis=1, keepdims=True)
+    xyz = np.r_[trunk, v + [0.0, 0.0, 5.0]] + [center_xy[0], center_xy[1], 0.0]
+    feats = np.c_[np.tile(np.asarray(colour, np.float64) / 255.0, (n, 1)), rng.uniform(0.01, 0.1, (n, d - 3))]
+    return np.c_[xyz, feats].astype(np.float32)
+
+
+def exp_recolour(cloud):
+    """Columns 0-2 of every descriptor set from the row's columns 3-5 (so a
+    scan row, a copy of its map row, keeps matching it) into [0, 1] x
+    [0.75, 1] x [0, 1], away from both tree colours; rows whose sum is not
+    positive have their other columns negated, as scene_file_layout does."""
+    import numpy as np
+
+    out = cloud.copy()
+    u = 0.5 + 0.5 * out[:, 6:9]
+    out[:, 3:6] = np.c_[u[:, 0], 0.75 + 0.25 * u[:, 1], u[:, 2]]
+    flip = out[:, 3:].sum(axis=1) <= 0
+    out[flip, 6:] = -out[flip, 6:]
+    return out
+
+
+def exp_trees_left(m, centers):
+    """How many planted trees keep a point of their colour in map m."""
+    import numpy as np
+
+    tree = np.zeros(m.shape[0], bool)
+    for c in EXP_TREE_COLORS:
+        tree |= np.abs(m[:, 3:6] - np.asarray(c, np.float32) / np.float32(255.0)).max(axis=1) < 1e-6
+    return sum(bool(np.any(tree & (np.linalg.norm(m[:, :2] - c, axis=1) < 3.0))) for c in centers)
+
+
+def drive_node_experiments(dev, peaks, rows, scene, local_map, true_poses):
+    """The node_experiments phase: `RegistrationNode.run_scene` on the node's
+    scene (first EXP_SCANS scans) in the reference's four experiment modes,
+    serially (an experiment turns the batched row off), with the vfm RANSAC
+    and TEASER columns (no PointDSC): cluster removal at EXP_REMOVAL_P on the
+    map with EXP_TREES planted trees (the generator's PCA fit set on columns
+    0-2), insertion of int(100 EXP_INSERT_P) clusters from EXP_INSERT_FILES
+    .npy files, scan-to-scan "data" and "kitti" (EXP_KITTI_FRAMES
+    SyntheticDrive sweeps written as .bin; the vfm columns skipped). Gates:
+    HDBSCAN finds every planted tree; each scan's removal leaves some trees
+    and takes some; `points_in_map` equals the same host helpers run again
+    on the same map with the same draws; B1 launched at least once per
+    serial vfm search, B2 once per ICP step call, B3 once per rebuild round,
+    in every mode; every GT-ICP lane within the recall gate of its true pose
+    (the KITTI pair's: the drive's motion between the two frames); every
+    pose finite and rigid. Then
+    B1-B3 at the removal's serial shapes (scan 0 on its first removed map).
+    Prints seconds per mode, the experiment's host work (clustering and map
+    edits) apart from the rest."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, TorchPCA
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline.registration_node import RegistrationNode
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticDrive, scene_file_layout
+    from vfmreg_tpu_torch.registration import icp
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    d = local_map.shape[1] - 3
+    layout = scene_file_layout(scene, local_map)
+    layout = dict(layout, scene_poses=layout["scene_poses"][:EXP_SCANS],
+                  scene_point_clouds=[exp_recolour(c) for c in layout["scene_point_clouds"][:EXP_SCANS]])
+    true_poses = true_poses[:EXP_SCANS]
+    # The trees 9-14 m from the scans' centres, in turn, at least 8 m apart.
+    centers = []
+    while len(centers) < EXP_TREES:
+        r, a = rng.uniform(9, 14), rng.uniform(0, 2 * np.pi)
+        c = true_poses[len(centers) % EXP_SCANS][:2, 3] + r * np.array([np.cos(a), np.sin(a)])
+        if all(np.linalg.norm(c - o) >= 8.0 for o in centers):
+            centers.append(c)
+    centers = np.array(centers)
+    trees = [exp_tree(rng, c, EXP_TREE_COLORS[k % 2], d) for k, c in enumerate(centers)]
+    anchors = np.zeros((2, 3 + d), np.float32)
+    anchors[:, :3] = [[-60.0, -60.0, 0.1], [-60.0, -59.0, 0.1]]
+    anchors[1, 3:6] = 1.0
+    anchors[:, 6:] = 0.05
+    clouds = [exp_recolour(c) for c in layout["map_point_clouds"]]
+    world = np.concatenate([anchors, *trees])
+    left = world[:, 0] < 0  # the map clouds split at x = 0, posed at the identity
+    layout["map_point_clouds"] = [np.r_[clouds[0], world[left]], np.r_[clouds[1], world[~left]]]
+
+    gen = ImageFeatureGenerator("dinov2", device=dev)
+    fit = TorchPCA(3)
+    fit.mean_, fit.components_ = np.zeros((1, d), np.float32), np.eye(d, 3, dtype=np.float32)
+    gen.fit_pca[3] = fit
+    tmp = tempfile.TemporaryDirectory()
+    clusters_dir, kitti_dir = os.path.join(tmp.name, "clusters"), os.path.join(tmp.name, "kitti")
+    os.makedirs(clusters_dir)
+    os.makedirs(kitti_dir)
+    for k in range(EXP_INSERT_FILES):
+        np.save(os.path.join(clusters_dir, f"tree_{k}.npy"),
+                exp_tree(rng, rng.uniform(-2, 2, 2), EXP_TREE_COLORS[k % 2], d))
+    drive = SyntheticDrive(n_frames=EXP_KITTI_FRAMES, seed=SEED)
+    for i in range(EXP_KITTI_FRAMES):
+        frame = drive[i]
+        np.c_[frame, np.zeros(frame.shape[0], np.float32)].tofile(os.path.join(kitti_dir, f"{i:06d}.bin"))
+    # The frames the KITTI mode draws (np.random seeded with SEED before it),
+    # and each pair's true motion: frame i + 1 in frame i.
+    np.random.seed(SEED)
+    picks = [int(np.random.choice(EXP_KITTI_FRAMES - 10)) for _ in range(EXP_SCANS)]
+    kitti_true = [np.linalg.inv(drive.gt_poses[i]) @ drive.gt_poses[i + 1] for i in picks]
+    emit({"phase": "node_experiments_data", "seconds": time.perf_counter() - t0,
+          "map_clouds": [list(c.shape) for c in layout["map_point_clouds"]], "trees": len(trees),
+          "tree_points": EXP_TREE_POINTS, "kitti_frames": EXP_KITTI_FRAMES, "kitti_points": int(frame.shape[0])})
+
+    modes = {
+        "removal": dict(cluster_removal_prob=EXP_REMOVAL_P, feature_generator=gen),
+        "insertion": dict(cluster_removal_prob=EXP_INSERT_P, cluster_insertion_dir=clusters_dir),
+        "scan_to_scan_data": dict(scan_to_scan="data"),
+        "scan_to_scan_kitti": dict(scan_to_scan="kitti", kitti_dir=kitti_dir),
+    }
+    methods = dict(methods_ransac=[("vfm", True)], methods_teaser=[("vfm", True)], methods_pointdsc=[])
+    total = collections.Counter()
+    removed_maps, acc_map, removal_gt0, removal_node = [], None, None, None
+    with tempfile.TemporaryDirectory() as empty:
+        for mode, kw in modes.items():
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                node = RegistrationNode(empty, device=dev, **methods, **kw)
+            poses, gts, maps = {}, {}, []
+            score, accumulate, remove = node.compute_errors, node._accumulate_map, node._apply_cluster_removal
+
+            def recording(gt_pose, pose, method, node=node, gts=gts, poses=poses, score=score):
+                gts.setdefault(node.scan_idx, np.array(gt_pose))
+                poses.setdefault(method, []).append(np.array(pose))
+                return score(gt_pose, pose, method)
+
+            def keep_map(scn, maps=maps, accumulate=accumulate):
+                maps.append(accumulate(scn))
+                return maps[-1]
+
+            def keep_removed(m, r, remove=remove):
+                removed_maps.append(remove(m, r))
+                return removed_maps[-1]
+
+            node.compute_errors, node._accumulate_map, node._apply_cluster_removal = recording, keep_map, keep_removed
+            np.random.seed(SEED)  # the KITTI frame's draw
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log), icp.recording_loops() as calls:
+                node.run_scene(layout)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            total.update(launches)
+
+            loop = collections.Counter()
+            for c in calls:
+                loop.update(c["loop"])
+            loops = loop_check(loop, [i for c in calls for i in c["iterations"]],
+                               [k for c in calls for k in c["rebuilds"]], GN_STEPS_PER_READ,
+                               sum(max(c["iterations"]) for c in calls))
+            launches_ok = (launches.get("cosine_argmax", 0) >= node.vfm_searches
+                           and (node.vfm_searches > 0) == (mode != "scan_to_scan_kitti")
+                           and launches.get("gn_moments_from_cache", 0) == loop["step_calls"] > 0
+                           and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"] > 0
+                           and loops["ok"])
+            gt_list = [gts[i] for i in sorted(gts)]
+            rigid = {k: max(float(np.abs(p[:3, :3].T @ p[:3, :3] - np.eye(3)).max()) for p in v)
+                     for k, v in poses.items()}
+            rigid_ok = (all(np.all(np.isfinite(p)) for v in poses.values() for p in v)
+                        and all(v < RIGID_ATOL for v in rigid.values()) and len(gt_list) == EXP_SCANS)
+            want_keys = ["icp"] if mode == "scan_to_scan_kitti" else [
+                "vfm_ransac", "vfm_ransac_icp", "vfm_teaser", "vfm_teaser_icp", "icp"]
+            keys_ok = list(node.rot_errors) == want_keys
+            gt_errs = [compute_errors(p, t) for p, t in zip(gt_list, kitti_true if mode == "scan_to_scan_kitti"
+                                                             else true_poses)]
+            gt_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for rte, rre in gt_errs)
+            out = {"phase": f"node_experiments_{mode}", "seconds": seconds, "scans": EXP_SCANS,
+                   "stage_seconds": node.stage_seconds, "launches": launches,
+                   "serial_vfm_searches": node.vfm_searches, "icp_calls": len(calls), "icp_loops": loops,
+                   "gt_rte_m": [e[0] for e in gt_errs], "gt_rre_deg": [e[1] for e in gt_errs],
+                   "rte_m": dict(node.trans_errors), "rre_deg": dict(node.rot_errors),
+                   "max_rigidity_error": rigid, "points_in_map": node.points_in_map}
+            host = sum(v for k, v in node.stage_seconds.items()
+                       if k in ("cluster_removal", "cluster_insertion", "scan_to_scan_map"))
+            out["experiment_host_seconds"] = host
+            out["registration_seconds"] = seconds - host - node.stage_seconds.get("accumulate_map", 0.0)
+            extra_ok = True
+            if mode == "removal":
+                clusters = [int(c) for c in re.findall(r"Clusters: (\d+)", log.getvalue())]
+                acc_map, removal_gt0, removal_node = maps[0], gt_list[0], node
+                left = [exp_trees_left(m, centers) for m in removed_maps]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    again = RegistrationNode(empty, device=dev, **methods, **kw)
+                    draws = np.random.RandomState(42)
+                    for _ in range(EXP_SCANS):
+                        again._apply_cluster_removal(acc_map, draws)
+                extra_ok = (len(clusters) == EXP_SCANS and min(clusters) >= EXP_TREES
+                            and exp_trees_left(acc_map, centers) == EXP_TREES
+                            and all(0 < k < EXP_TREES for k in left)
+                            and node.points_in_map == again.points_in_map)
+                out.update(clusters=clusters, trees_left=left, points_in_map_again=again.points_in_map,
+                           map_points=int(acc_map.shape[0]))
+            ok = launches_ok and rigid_ok and keys_ok and gt_ok and extra_ok
+            out["ok"] = ok
+            emit(out)
+            if not ok:
+                raise RuntimeError(f"node_experiments {mode}: launches {launches_ok} ({launches}, "
+                                   f"{node.vfm_searches} searches, {loops}), rigid {rigid_ok} ({rigid}), keys "
+                                   f"{keys_ok} ({list(node.rot_errors)}), GT {gt_ok} ({gt_errs}), removal "
+                                   f"{extra_ok} ({out.get('clusters')}, {out.get('trees_left')}, "
+                                   f"{node.points_in_map} vs {out.get('points_in_map_again')})")
+    tmp.cleanup()
+
+    # B1-B3 at the removal's serial shapes: scan 0 on its first removed map.
+    check_serial_kernels("node_experiments", dev, peaks, rows, removal_node, removed_maps[0],
+                         layout["scene_point_clouds"][0], removal_gt0)
+    return dict(total)
 
 
 def make_structured_cloud(rng, n=1200):
@@ -2236,6 +2513,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["node_baselines"] = {}
     by_path["node_baselines"] = drive_node_baselines(dev, peaks, rows["node_baselines"], *driver_scene)
+    torch.cuda.empty_cache()
+    rows["node_experiments"] = {}
+    by_path["node_experiments"] = drive_node_experiments(dev, peaks, rows["node_experiments"], *driver_scene)
     del driver_scene
     torch.cuda.empty_cache()
     rows["odometry"] = {}

@@ -22,8 +22,8 @@ PointDSC:
   (`tests/test_harness.py`'s bar), the TEASER rows (serial in both) equal;
 * the RobotCar GT fixes follow the file name, in both paths; the
   map-descriptor cache resets per scene; `dump_errors`' pickle reads to the
-  same text with both packages' `print_errors`; the options that are not
-  ported raise; the CLI runs the folder and writes the pickle;
+  same text with both packages' `print_errors`; `map_sharding`, not
+  ported, raises; the CLI runs the folder and writes the pickle;
 * `dump_viz_dir` (the reference, the port serial with the reference's
   picks, the port batched): the same files; the map's bytes equal; every
   file parses with the vertex and edge counts of its header
@@ -274,14 +274,18 @@ def test_dump_errors_reads_the_same_in_both_packages(runs, tmp_path, capsys):
 
 
 def test_unported_options_raise(scene_h5, tmp_path, monkeypatch):
-    """The A15 options raise; the visualization dump (class and CLI) and the
-    fcgf PointDSC column, which raised before they were ported, run."""
-    for kw, item in (({"cluster_removal_prob": 0.5}, "A15"), ({"cluster_insertion_dir": scene_h5}, "A15"),
-                     ({"scan_to_scan": "data"}, "A15"), ({"map_sharding": True}, "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            trn.RegistrationNode(scene_h5, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A15"):
-        trn.main([str(scene_h5), "--device", "cpu", "--cluster-removal-sweep"])
+    """Only `map_sharding` raises, naming A15b; the experiment options, the
+    visualization dump (class and CLI) and the fcgf PointDSC column, which
+    raised before they were ported, run (the experiments' own tests are
+    tests/test_torch_experiments.py)."""
+    with pytest.raises(NotImplementedError, match="A15b"):
+        trn.RegistrationNode(scene_h5, device="cpu", map_sharding=True)
+    for kw in ({"cluster_removal_prob": 0.5}, {"cluster_insertion_dir": scene_h5}, {"scan_to_scan": "data"},
+               {"scan_to_scan": "kitti", "kitti_dir": scene_h5}):
+        node = trn.RegistrationNode(scene_h5, device="cpu", **kw)
+        assert all(getattr(node, k) == v for k, v in kw.items())
+    with pytest.raises(ValueError, match="scan_to_scan"):
+        trn.RegistrationNode(scene_h5, device="cpu", scan_to_scan="odometry")
     node = trn.RegistrationNode(scene_h5, device="cpu", dump_viz_dir=tmp_path / "viz", **METHODS)
     assert node.dump_viz_dir == tmp_path / "viz"
     # A YAML config now reads as the reference reads it.

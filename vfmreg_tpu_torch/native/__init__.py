@@ -1,0 +1,1 @@
+"""Host-side native code of the port, built with `g++` at first use."""

@@ -39,10 +39,12 @@ each stage took.
 the map, runs the method matrix per scan (the batched row, or the serial
 per-scan methods), the baseline descriptors' RANSAC columns, the serial
 TEASER column, the PointDSC column, and keeps the errors, the recall
-summary, the error pickle and, with `dump_viz_dir`, per-scan PLY files.
-Run as the reference's CLI:
+summary, the error pickle and, with `dump_viz_dir`, per-scan PLY files. It
+also runs the reference's experiment modes (cluster removal and insertion,
+scan-to-scan; see the class). Run as the reference's CLI:
 
     python -m vfmreg_tpu_torch.pipeline.registration_node FOLDER [--device cpu] [--dump-viz DIR]
+        [--cluster-removal-sweep]
 
 (reading the scene files needs `h5py`). `pipeline/synthetic.py` runs the
 batched row on a small synthetic scene.
@@ -82,7 +84,8 @@ from vfmreg_tpu_torch.registration.ransac import ransac_registration, snap_corre
 from vfmreg_tpu_torch.registration.teaser import teaser_registration_exact
 from vfmreg_tpu_torch.utils.device import resolve_device
 from vfmreg_tpu_torch.utils.logging import print_msg
-from vfmreg_tpu_torch.utils.pcl import transform_pcl
+from vfmreg_tpu_torch.utils.hdbscan import hdbscan_labels
+from vfmreg_tpu_torch.utils.pcl import KNeighbors, transform_pcl
 from vfmreg_tpu_torch.utils.precision import full_precision
 
 RANSAC_HYPOTHESES = 50000  # registration_node.py:319-327
@@ -362,6 +365,16 @@ TEASER_NOISE_BOUND = 0.2  # registration_node.py:112-127
 DEFAULT_RANSAC = [(m, True) for m in ("fpfh", "dip", "gedi", "fcgf", "gcl", "spinnet", "vfm")]
 DEFAULT_TEASER = [("fpfh", True), ("vfm", True)]
 DEFAULT_POINTDSC = [("fpfh", True), ("fcgf", True)]
+# The PCA colours of the classes the removal experiment takes out: trees
+# (`registration_node.py:660-662`).
+REMOVE_CLASSES = [np.array([[217, 60, 165], [118, 105, 57]], dtype=np.float32)]
+# `--cluster-removal-sweep`'s (file suffix, probability) modes, in the
+# reference's order (`registration_node.py:1556-1563`).
+SWEEP_MODES = [
+    ("000", 0), ("020", 0.2), ("040", 0.4), ("060", 0.6), ("080", 0.8),
+    ("100", 1.0), ("010", 0.1), ("030", 0.3), ("050", 0.5), ("070", 0.7),
+    ("090", 0.9),
+]
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -400,9 +413,9 @@ class RegistrationNode:
     which always preprocesses the scans on the device: the rows the host
     chain keeps). The baseline, TEASER and PointDSC columns are serial
     either way. Both paths give the same rows: GT and vanilla ICP bit for bit, RANSAC within the
-    refine's tolerance (tests, `chip_smoke.py`). `feature_generator`,
-    `rng_seed`, `kitti_dir` and `device_preprocess` are accepted for the
-    reference's signature and read by nothing that is ported.
+    refine's tolerance (tests, `chip_smoke.py`). `rng_seed` and
+    `device_preprocess` are accepted for the reference's signature and read
+    by nothing.
 
     The baseline columns run the reference's default matrix: RANSAC over
     fpfh, dip, gedi, fcgf, gcl, spinnet (`compute_correspondences`: the
@@ -417,8 +430,21 @@ class RegistrationNode:
     `dump_viz_dir` writes per scan the map (once a scene), the scan at GT
     and at the flagship estimate, and the correspondences of the last
     RANSAC column (the batched row's vfm pairs) as PLY segment pairs
-    (`_dump_scan_viz`). The cluster experiments, scan-to-scan and map
-    sharding (A15) raise. Runs on `device` (default: the card)."""
+    (`_dump_scan_viz`).
+
+    The experiment modes (reference `make_step`, `:1284-1375`) turn the
+    batched row off and run every scan serially on a map of its own:
+    `cluster_removal_prob` p > 0 removes each tree cluster of the map with
+    probability p (`_apply_cluster_removal`: `feature_generator.run_pca`
+    colours, the native KD-tree's region growth, HDBSCAN), and with
+    `cluster_insertion_dir` inserts int(100 p) clusters drawn from its
+    `*.npy` files instead (`_apply_cluster_insertion`); `scan_to_scan`
+    "data" registers each scan against its nearest map cloud, "kitti"
+    against consecutive `kitti_dir/*.bin` frames (no descriptors: the vfm
+    columns are skipped), both from the GT pose plus seeded noise. Their
+    draws come from two `np.random.RandomState(42)` per scene and, for the
+    KITTI frame, the global `np.random`, in the reference's order.
+    `map_sharding` (A15b) raises. Runs on `device` (default: the card)."""
 
     # Manual RobotCar GT improvements (`registration_node.py:597-623`).
     _ROBOTCAR_GT_FIX = {
@@ -447,12 +473,11 @@ class RegistrationNode:
         dump_viz_dir: Optional[Path] = None,
         device=None,
     ) -> None:
-        if cluster_removal_prob > 0 or cluster_insertion_dir is not None:
-            raise _not_ported("the cluster removal and insertion experiments", "A15")
-        if scan_to_scan is not None:
-            raise _not_ported("scan_to_scan", "A15")
         if map_sharding:
-            raise _not_ported("map_sharding", "A15")
+            raise _not_ported("map_sharding (with parallel/mesh.py's multi-device paths and "
+                              "utils/profiling.py)", "A15b")
+        if scan_to_scan not in (None, "data", "kitti"):
+            raise ValueError(f"scan_to_scan must be None, 'data' or 'kitti', got {scan_to_scan!r}")
         self.device = resolve_device(device)
         self.dump_viz_dir = Path(dump_viz_dir) if dump_viz_dir is not None else None
         self._viz_corr: Optional[Tuple[np.ndarray, np.ndarray]] = None
@@ -460,6 +485,11 @@ class RegistrationNode:
         full_precision()
         self.interactive = interactive
         self.viz = viz
+        self.cluster_removal_prob = cluster_removal_prob
+        self.cluster_insertion_dir = cluster_insertion_dir
+        self.kitti_dir = kitti_dir
+        self.scan_to_scan = scan_to_scan
+        self.dino_generator = feature_generator  # run_pca provider of the removal
         if batch_scans is None:
             batch_scans = self.device.type == "cuda"
         self.batch_scans = batch_scans
@@ -479,7 +509,7 @@ class RegistrationNode:
 
         self.rot_errors: Dict[str, List[float]] = {}
         self.trans_errors: Dict[str, List[float]] = {}
-        self.points_in_map: List[int] = []  # the cluster experiments' map sizes (A15)
+        self.points_in_map: List[int] = []  # the map's size after each removal
         self.stop_publishing = False
         # Per scene: seconds by stage, the batched row's stats, and the serial
         # correspondence searches (one kernel B1 launch each).
@@ -797,6 +827,129 @@ class RegistrationNode:
                 pose[:3, 3] += np.array(fix, dtype=np.float64)
         return pose
 
+    def _apply_cluster_removal(self, local_map: np.ndarray, rng_cluster_removal) -> np.ndarray:
+        """The semantic cluster-removal experiment (`registration_node.py:651-704`):
+        the map's PCA colours within 50 of a tree colour, those with >= 3
+        such neighbours within a squared 0.5 m, grown by their other
+        neighbours within a squared 0.5 m, clustered by HDBSCAN (100, 25);
+        then one normal draw per cluster, in label order, keeps the cluster
+        when it lies above the normal quantile of `cluster_removal_prob` p
+        and removes it otherwise (with probability p). Appends the map's
+        new size to `points_in_map`. An empty selection raises ValueError,
+        as the reference's does: no tree-coloured point leaves the KD-tree
+        k = 0 neighbours to find, no cluster leaves numpy an empty max."""
+        import scipy.stats
+
+        if self.dino_generator is None:
+            raise ValueError("cluster removal requires a feature_generator (run_pca)")
+        local_map_pca = self.dino_generator.run_pca(local_map[:, 3:], n_components=3)
+        for remove_class in REMOVE_CLASSES:
+            del_idx = []
+            for color in remove_class:
+                distance = np.linalg.norm(local_map_pca - color, axis=1)
+                del_idx.append(np.flatnonzero(distance < 50))
+            del_idx = np.concatenate(del_idx)
+
+            knn = KNeighbors()
+            knn.fit(local_map[del_idx, :3], del_idx)
+            n_neighbors = knn.n_neighbors_in_radius(local_map[del_idx, :3], 10, 0.5)
+            del_idx = del_idx[n_neighbors >= 3]
+            keep_idx = np.delete(np.arange(local_map.shape[0]), del_idx)
+            knn = KNeighbors()
+            knn.fit(local_map[keep_idx, :3], keep_idx)
+            knn_idx = knn.query(local_map[del_idx, :3], 50, 0.5)
+            del_idx = np.concatenate([del_idx, knn_idx])
+
+            a = time.time()
+            cluster_labels = hdbscan_labels(local_map[del_idx, :3], min_cluster_size=100, min_samples=25)
+            print(
+                f"Clustering time: {(time.time() - a):.5f} | Clusters: {cluster_labels.max() + 1} "
+                f"| Outliers: {np.sum(cluster_labels == -1)}"
+            )
+            del_idx = del_idx[cluster_labels != -1]
+            cluster_labels = cluster_labels[cluster_labels != -1]
+
+            for label in range(cluster_labels.max() + 1):
+                if rng_cluster_removal.standard_normal() > scipy.stats.norm.ppf(self.cluster_removal_prob):
+                    del_idx = del_idx[cluster_labels != label]
+                    cluster_labels = cluster_labels[cluster_labels != label]
+            keep_idx = np.delete(np.arange(local_map.shape[0]), del_idx)
+            local_map = local_map[keep_idx]
+            self.points_in_map.append(local_map.shape[0])
+        print(f"Semantic-filtered map: {local_map.shape[0]}")
+        return local_map
+
+    def _apply_cluster_insertion(
+        self, local_map: np.ndarray, gt_pose: np.ndarray, rng_cluster_removal
+    ) -> np.ndarray:
+        """The tree-insertion experiment (`registration_node.py:706-733`):
+        int(100 p) clusters drawn (with replacement) from
+        `cluster_insertion_dir/*.npy`, each centred, dropped at a random map
+        point with the GT pose's rotation, its top at the highest map point
+        within 2 m, and appended to the map."""
+        cluster_files = sorted(Path(self.cluster_insertion_dir).glob("*.npy"))
+        if not cluster_files:
+            return local_map
+        n_insert = int(self.cluster_removal_prob * 100)
+        sampled = rng_cluster_removal.choice(len(cluster_files), n_insert, replace=True)
+        new_clusters = []
+        for fi in sampled:
+            cluster = np.load(cluster_files[int(fi)])
+            cluster = cluster[:, : local_map.shape[1]]
+            cluster[:, :3] -= np.mean(cluster[:, :3], axis=0)
+            cluster_pose = np.asarray(gt_pose).copy()
+            idx = rng_cluster_removal.choice(local_map.shape[0], 1)
+            cluster_pose[:2, 3] = local_map[idx, :2]
+            dist = np.linalg.norm(local_map[:, :2] - cluster_pose[:2, 3].reshape(1, 2), axis=1)
+            near = local_map[dist < 2]
+            ground_z = np.max(near[:, 2]) if near.shape[0] else 0.0
+            cluster[:, :3] = transform_pcl(cluster[:, :3], cluster_pose)
+            cluster[:, 2] += ground_z - np.max(cluster[:, 2])
+            new_clusters.append(cluster)
+        if not new_clusters:
+            return local_map
+        return np.concatenate([local_map] + new_clusters, axis=0)
+
+    def _kitti_pair(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(map, scan) for scan-to-scan on KITTI (`registration_node.py:1315-1328`):
+        consecutive velodyne frames of `kitti_dir`, the first drawn by the
+        global `np.random.choice` among all but the last 10, each voxelized
+        at 0.1 m, xyz only."""
+        if self.kitti_dir is None:
+            raise ValueError("scan_to_scan='kitti' requires kitti_dir")
+        filenames = sorted(Path(self.kitti_dir).glob("*.bin"))
+        kitti_i = np.random.choice(len(filenames) - 10)
+        local_map = np.fromfile(filenames[kitti_i], dtype=np.float32).reshape(-1, 4)[:, :3]
+        point_cloud = np.fromfile(filenames[kitti_i + 1], dtype=np.float32).reshape(-1, 4)[:, :3]
+        local_map = voxel_down_sample(local_map, 0.1).astype(np.float32)
+        point_cloud = voxel_down_sample(point_cloud, 0.1).astype(point_cloud.dtype)
+        print(f"Map {local_map.shape[0]}, Scan {point_cloud.shape[0]}")
+        return local_map, point_cloud
+
+    def _nearest_map_cloud(self, scene: Dict, pose: np.ndarray) -> np.ndarray:
+        """Scan-to-scan on the scene's own data (`registration_node.py:1339-1346`):
+        the map cloud whose pose lies nearest the scan's, in the world frame,
+        voxelized at 0.1 m."""
+        map_poses = np.array([p[:3, 3] for p in scene["map_poses"]])
+        nearest = int(np.linalg.norm(pose[:3, 3] - map_poses, axis=1).argmin())
+        local_map = transform_pcl(scene["map_point_clouds"][nearest], scene["map_poses"][nearest])
+        return voxel_down_sample(local_map, 0.1).astype(local_map.dtype)
+
+    @staticmethod
+    def _noisy_initial_pose(gt_pose: np.ndarray, rng) -> np.ndarray:
+        """Scan-to-scan's initial guess (`registration_node.py:1354-1363`):
+        the GT pose plus N(0, 10 m) in x, y and N(0, 1 m) in z, and
+        N(0, 2 deg), N(0, 2 deg), N(0, 10 deg) on its xyz Euler angles."""
+        from scipy.spatial.transform import Rotation as Rot
+
+        t_noise = np.r_[rng.normal(0, 10, 2), rng.normal(0, 1, 1)]
+        r_noise = np.r_[rng.normal(0, 2, 2), rng.normal(0, 10, 1)]
+        initial_pose = gt_pose.copy()
+        euler = Rot.from_matrix(initial_pose[:3, :3]).as_euler("xyz")
+        initial_pose[:3, :3] = Rot.from_euler("xyz", euler + np.deg2rad(r_noise)).as_matrix()
+        initial_pose[:3, 3] = initial_pose[:3, 3] + t_noise
+        return initial_pose
+
     def _read_scene(self, idx):
         fut = self._scene_futures.pop(idx, None)
         if fut is not None:
@@ -854,8 +1007,19 @@ class RegistrationNode:
         scene_local_map = self._accumulate_map(scene)
         tic("accumulate_map")
 
+        # The experiments' draws, fresh for every scene (`:1285-1286`).
+        rng = np.random.RandomState(seed=42)
+        rng_cluster_removal = np.random.RandomState(seed=42)
+
+        # An experiment changes the map or the scan per scan: no batched row.
         precomputed = None
-        if self.batch_scans and len(scene["scene_poses"]) >= 2:
+        if (
+            self.batch_scans
+            and self.scan_to_scan is None
+            and self.cluster_removal_prob == 0
+            and self.cluster_insertion_dir is None
+            and len(scene["scene_poses"]) >= 2
+        ):
             precomputed = self._precompute_scene_batched(scene, scene_local_map)
             tic("batched_row")
 
@@ -866,8 +1030,12 @@ class RegistrationNode:
             tmp = point_cloud.shape
             point_cloud = voxel_down_sample(point_cloud, 0.1).astype(point_cloud.dtype)
             print(f"Scan voxelization (0.1m): {tmp[0]} -> {point_cloud.shape[0]}")
-            pose = self._gt_fixed_pose(pose)
             tic("scan_voxelize")
+            if self.scan_to_scan == "kitti":
+                scene_local_map, point_cloud = self._kitti_pair()
+                pose = np.eye(4)
+                tic("scan_to_scan_map")
+            pose = self._gt_fixed_pose(pose)
 
             # GT pose: noiseless KISS-ICP (`:644-646`).
             print(f'{"--- Ground truth: ICP w/o noise ---":-^80}')
@@ -881,14 +1049,32 @@ class RegistrationNode:
             tic("gt_icp")
 
             local_map = scene_local_map
+            if self.scan_to_scan == "data":
+                local_map = self._nearest_map_cloud(scene, pose)
+                tic("scan_to_scan_map")
+            if self.cluster_removal_prob > 0 and self.cluster_insertion_dir is None:
+                local_map = self._apply_cluster_removal(local_map, rng_cluster_removal)
+                tic("cluster_removal")
+            elif self.cluster_insertion_dir is not None and self.cluster_removal_prob > 0:
+                local_map = self._apply_cluster_insertion(local_map, gt_pose, rng_cluster_removal)
+                tic("cluster_insertion")
+
+            # Scan-to-scan starts from the GT pose plus noise (`:1354-1365`).
+            if self.scan_to_scan is not None:
+                initial_pose = self._noisy_initial_pose(gt_pose, rng)
+            else:
+                initial_pose = np.eye(4)
             # All computed poses are relative to this initial guess (`:859-861`).
-            initial_pose = np.eye(4)
             point_cloud = transform_pcl(point_cloud, initial_pose)
-            if i == 0:
+            # The map's descriptors are cached per scene, and per scan when
+            # the map changes per scan (`:1374-1375`).
+            if i == 0 or self.scan_to_scan is not None or self.cluster_removal_prob > 0:
                 self.map_descriptor_cache = {}
 
             print(f'{"--- RANSAC ---":-^80}')
             for method, run_icp in self.methods_ransac:
+                if self.scan_to_scan == "kitti" and method == "vfm":
+                    continue  # KITTI frames carry no descriptors (`:1379-1380`)
                 key = f"{method}_ransac"
                 if precomputed is not None and method == "vfm":
                     print(f"[vfm] Correspondences: {precomputed['corr_counts'][i]} (batched)")
@@ -908,6 +1094,8 @@ class RegistrationNode:
             tic("ransac")
             print(f'{"--- TEASER ---":-^80}')
             for method, run_icp in self.methods_teaser:
+                if self.scan_to_scan == "kitti" and method == "vfm":
+                    continue
                 key = f"{method}_teaser"
                 results[key], results[f"{key}_icp"] = self.teaser_registration(
                     local_map, point_cloud, method, run_icp
@@ -1067,7 +1255,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     """The reference's CLI (`registration_node.py:1522-1595`) on a folder of
     `scene_*.h5`, plus `--device`: every scene, the average time per step,
     the errors pickled to FOLDER/errors_<date>/mode.pkl, and with
-    `--dump-viz DIR` the per-scan PLY files under DIR."""
+    `--dump-viz DIR` the per-scan PLY files under DIR.
+    `--cluster-removal-sweep` runs the folder once per mode of SWEEP_MODES,
+    in that order, with one `ImageFeatureGenerator` (its PCA fit, made on the
+    first map, colours every later map) and writes `mode_<NNN>.pkl` each."""
     def signal_handler(sig, frame):
         print("Manual termination triggered")
         sys.exit(0)
@@ -1076,34 +1267,44 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("folder", type=str)
     parser.add_argument("--interactive", action="store_true", help="Pauses after each scene.")
     parser.add_argument("--cluster-removal-sweep", action="store_true",
-                        help="The 0..100%% cluster-removal sweep (not ported: ROADMAP A15)")
+                        help="Run the 0..100%% cluster-removal experiment sweep")
     parser.add_argument("--dump-viz", type=str, default=None, metavar="DIR",
                         help="Write per-scan visualization PLYs (map, scan at GT / estimate, "
                              "correspondence segments) under DIR")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.cluster_removal_sweep:
-        raise _not_ported("--cluster-removal-sweep", "A15")
     signal.signal(signal.SIGINT, signal_handler)
 
     datetime_now = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    cluster_removal_probs = SWEEP_MODES if args.cluster_removal_sweep else [(None, 0)]
+    # The removal needs a PCA provider; run_pca does not use the model's
+    # weights, so the default (random) generator serves.
+    feature_generator = None
+    if any(prob > 0 for _, prob in cluster_removal_probs):
+        from vfmreg_tpu_torch.models import image_features
+
+        feature_generator = image_features.ImageFeatureGenerator("dinov2", device=args.device)
+
     data_dir = Path(args.folder)
-    node = RegistrationNode(data_dir, args.interactive, 0, None, device=args.device,
-                            dump_viz_dir=Path(args.dump_viz) if args.dump_viz else None)
-    times = []
-    while not node.stop_publishing:
-        start = time.time()
-        node.make_step()
-        times.append(time.time() - start)
-        avg = np.mean(times)
-        remaining = (len(node.filenames) - node.scene_idx) * avg
-        print(
-            f"\033[93m Average time per step: {avg:.3f} s | "
-            f"Remaining: {remaining // 3600}h {(remaining % 3600) // 60}min \033[0m"
-        )
-        if args.interactive and not node.stop_publishing:
-            input("Press Enter to continue with next scene...\n")
-    node.dump_errors(data_dir / f"errors_{datetime_now}" / "mode.pkl")
+    for mode_name, prob in cluster_removal_probs:
+        mode_str = f"_{mode_name}" if mode_name is not None else ""
+        node = RegistrationNode(data_dir, args.interactive, prob, None, feature_generator=feature_generator,
+                                device=args.device,
+                                dump_viz_dir=Path(args.dump_viz) if args.dump_viz else None)
+        times = []
+        while not node.stop_publishing:
+            start = time.time()
+            node.make_step()
+            times.append(time.time() - start)
+            avg = np.mean(times)
+            remaining = (len(node.filenames) - node.scene_idx) * avg
+            print(
+                f"\033[93m Average time per step: {avg:.3f} s | "
+                f"Remaining: {remaining // 3600}h {(remaining % 3600) // 60}min \033[0m"
+            )
+            if args.interactive and not node.stop_publishing:
+                input("Press Enter to continue with next scene...\n")
+        node.dump_errors(data_dir / f"errors_{datetime_now}" / f"mode{mode_str}.pkl")
 
 
 if __name__ == "__main__":
