@@ -12,7 +12,7 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives eleven paths. The first five run B1-B3, the
+one-lane entries), and drives twelve paths. The first five run B1-B3, the
 odometry B2 and B3, the descriptor passes and featup B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
@@ -85,10 +85,15 @@ odometry B2 and B3, the descriptor passes and featup B5:
   per frame (a synchronize after each stage), then fresh free-running runs
   of the first 40 frames (one synchronize at the end; with the map's
   lagged point count and with a synchronize after every update, in turns)
-  and the idle share of such a run; then
-  odometry_xd, the first 20 frames with 384-d descriptor columns through
-  the XD path (cosine-weighted champions, plain PyTorch on the card, no
-  kernel launch), every pose gated;
+  and the idle share of such a run; then odometry_readers, the drive's
+  first 20 frames written as a MulRan and as a Boreas sequence and run by
+  `kiss.pipeline.OdometryPipeline` through `kiss.datasets.dataset_factory`
+  with the default config: every frame read back as written, each
+  reader's ground truth as written after its documented transform, every
+  pose gated, the two runs' poses bit for bit equal, B2 and B3 launched as
+  the loops count; then odometry_xd, the first 20 frames with 384-d
+  descriptor columns through the XD path (cosine-weighted champions, plain
+  PyTorch on the card, no kernel launch), every pose gated;
 * descriptor: the DINOv2 descriptor pass at ViT-S/14 full width (384
   wide, 12 layers, 6 heads of 64) with random weights from a seeded
   generator (no checkpoint is in the repository), over 8 clouds of 16,384
@@ -127,8 +132,10 @@ B3 once per rebuild round, B5 12 times per image (11 with MaskCLIP);
 odometry_xd launches none. Per ICP row it prints the loop's step calls,
 reads and rebuild rounds beside the lanes' iterations and rebuilds, and
 checks them against each other (`loop_check`). No path launches B4 (the ICP
-takes the fused B2); it is checked at the slice's and the driver's champion
-caches.
+takes the fused B2); it is checked at the slice's, the driver's and the
+odometry's champion caches, at the slice cache cut to a ragged 16,381
+columns and at the driver cache's first 7 rows, each with its event,
+CUDA-graph and cold-L2 times.
 
 B1 and B5 run 3xTF32 on the tensor cores, so their bound is three TF32
 products per f32 product at the TF32 tensor-core rate; B2-B4 keep the f32
@@ -144,11 +151,13 @@ fpfh refine's start, node_experiments_data, node_experiments_removal,
 node_experiments_insertion, node_experiments_scan_to_scan_data,
 node_experiments_scan_to_scan_kitti, kernel_check for B1-B3 at the
 removal's shapes, odometry_data, odometry, kernel_check for B2 and
-B3 at the odometry's shapes, odometry_free, odometry_idle, odometry_xd, kernel_check for B5
+B3 at the odometry's shapes, kernel_check for B4 at the odometry's cache,
+odometry_free, odometry_idle, odometry_readers_data, odometry_readers for
+each reader, odometry_readers_equal, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
 [2, 200, 4, 32] and at T = 320, descriptor, kernel_check for B5 at the
 MaskCLIP pass's q, k, v [1, 321, 12, 64], descriptor_maskclip, featup,
-clip_text), then
+clip_text, script: the whole run's seconds), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
 under "paths"), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises and the script
@@ -210,6 +219,13 @@ FEATUP_ATOL, TEXT_ATOL, SIM_RANGE_SLACK = 1e-4, 1e-4, 1e-6
 # every ODO_CHECK_EVERY frames; the idle share over a fresh run of the first
 # ODO_IDLE_FRAMES; the descriptor (XD) run over the first ODO_XD_FRAMES.
 ODO_FRAMES, ODO_POINTS, ODO_CHECK_EVERY, ODO_IDLE_FRAMES, ODO_XD_FRAMES = 200, 122880, 50, 40, 20
+# odometry_readers phase: the drive's first ODO_READER_FRAMES frames on disk
+# as MulRan and as Boreas. Each reader's ground truth against the written
+# poses after its transform: within READER_GT_ATOL in float64 (MulRan: two
+# 4 x 4 products and two inverses of poses within 20 m), within
+# READER_GT_F32_ATOL where the reader stores f32 (Boreas: half an ulp of f32
+# at 20 m is 9.5e-7, plus the Euler angles' round trip).
+ODO_READER_FRAMES, READER_GT_ATOL, READER_GT_F32_ATOL = 20, 1e-9, 1e-5
 # Odometry pose gate, every frame's pose against the truth: about twice what
 # the 200-frame drive reads with its 2 cm range noise (max RTE 0.052 m, RRE
 # 0.031 deg; H100 80GB HBM3, 700 W), well inside the recall gate above.
@@ -268,6 +284,14 @@ SPARSE_CONV_ATOL, RESUNET_ATOL = 1e-4, 1e-5
 EXP_SCANS, EXP_TREES, EXP_TREE_POINTS, EXP_REMOVAL_P, EXP_INSERT_P = 2, 6, 3000, 0.5, 0.05
 EXP_INSERT_FILES, EXP_KITTI_FRAMES = 5, 12
 EXP_TREE_COLORS = ((217, 60, 165), (118, 105, 57))
+# B4 is checked at each path's champion cache and at two shapes its design
+# handles apart: the slice cache's first NN_RAGGED_N columns (n not a
+# multiple of 4, so no row starts 16-byte aligned and every tile is read by
+# plain loads) and the driver cache's first NN_SMALL_K rows (the generic
+# runtime-K form). Its cold time is the median of NN_COLD_LAUNCHES single
+# launches, each after FLUSH_BYTES are read (over twice the H100's 50 MB
+# L2) and a spin of SPIN_CYCLES clock cycles covers the host's enqueue.
+NN_RAGGED_N, NN_SMALL_K, NN_COLD_LAUNCHES, FLUSH_BYTES, SPIN_CYCLES = 16381, 7, 50, 128 << 20, 1_000_000
 # Published peaks of an H100 (NVIDIA data sheet, dense, SXM at 700 W): HBM
 # rate, f32 CUDA-core rate and TF32 tensor-core rate. The PCIe card is
 # slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
@@ -723,17 +747,64 @@ def check_gn_lanes(path, champs, src, mask, kernel, max_dist, peaks):
     return row
 
 
-def check_nn_argmin(path, cache, source, peaks):
+def cuda_cold_ms(fn, kernel, launches=NN_COLD_LAUNCHES):
+    """(event ms, kernel ms, kernel records) of one call of `fn` with a cold
+    L2, each time the median over `launches` calls. Before each call a FLUSH_BYTES buffer is
+    read (its sum: the H100's 50 MB L2 then holds none of the inputs and no
+    dirty line to write back), and a spin kernel of SPIN_CYCLES keeps the
+    card busy while the host enqueues the call. The event time is taken
+    between two events around the call, so it holds the launch's own
+    latency; the kernel time is CUPTI's record of the kernel whose name
+    holds `kernel` (`torch.profiler`, a second round of calls), the kernel
+    alone."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+
+    flush = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    fn()
+
+    def cold_call():
+        flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        return start, end
+
+    events = [cold_call() for _ in range(launches)]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            cold_call()
+        torch.cuda.synchronize()
+    kernel_ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+    # CUPTI may drop some records of a long run (40 of 50 seen on an H100);
+    # the median of those it kept stands, half of them at least.
+    if not launches // 2 <= len(kernel_ms) <= launches:
+        raise RuntimeError(f"the profiler recorded {len(kernel_ms)} launches of {kernel}, of {launches}")
+    return statistics.median(s.elapsed_time(e) for s, e in events), statistics.median(kernel_ms), len(kernel_ms)
+
+
+def check_nn_argmin(path, cx, cy, cz, source, peaks):
     """Kernel B4 against its plain version, bit for bit, on one champion
-    cache of `path` with its lane's positions, plus one NaN query (column 0)
-    and one empty neighbourhood (column 1, every champion the sentinel)."""
+    cache cx, cy, cz [K, n] of `path` with its lane's positions [n, 3],
+    plus one NaN query (column 0) and one empty neighbourhood (column 1,
+    every champion the sentinel). Timed four ways: `ms`, CUDA events
+    around back-to-back wrapper calls (the host's cost included);
+    `device_ms`, the calls captured in one CUDA graph (warm L2); `cold_ms`
+    and `cold_kernel_ms`, single calls after an L2 flush by events and by
+    the profiler's kernel record (`cuda_cold_ms`)."""
     import torch
 
     from vfmreg_tpu_torch.ops.hash_grid import INVALID_COORD
     from vfmreg_tpu_torch.ops.nn_kernel import NO_ROW, nn_argmin, nn_argmin_plain
 
     t0 = time.perf_counter()
-    cx, cy, cz = (c.clone() for c in (cache.cx, cache.cy, cache.cz))
+    cx, cy, cz = (c.clone() for c in (cx, cy, cz))
     for c in (cx, cy, cz):
         c[:, 1] = INVALID_COORD
     q = source.clone()
@@ -752,24 +823,29 @@ def check_nn_argmin(path, cache, source, peaks):
     fin = torch.isfinite(d2_k) & torch.isfinite(d2_p)
     err = float((d2_k[fin] - d2_p[fin]).abs().max())
     ms = cuda_time_ms(lambda: nn_argmin(*args), reps=200, warmup=10)
+    with torch.no_grad():
+        device_ms = cuda_graph_ms(lambda: nn_argmin(*args))
+    cold_ms, cold_kernel_ms, cold_records = cuda_cold_ms(lambda: nn_argmin(*args), "nn_argmin_kernel")
     plain_ms = cuda_time_ms(lambda: nn_argmin_plain(*args), reps=20)
     k, n = cx.shape
+    nbytes = 4.0 * (3 * k * n + 3 * n) + 8.0 * n
     row = {
         "name": "nn_argmin", "route": "cuda", "ok": ok, "source": "vfmreg_tpu_torch/csrc/nn_argmin.cu",
         "replaces": "vfmreg_tpu/ops/nn_kernel.py:44",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        **_bound(4.0 * (3 * k * n + 3 * n) + 8.0 * n, 8.0 * k * n, peaks),
-        "library_ms": None,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **_bound(nbytes, 8.0 * k * n, peaks),
+        "library_ms": None, "device_ms": device_ms, "cold_ms": cold_ms, "cold_kernel_ms": cold_kernel_ms,
+        "host_ms": ms - device_ms,
         "launches_note": "no path of either package calls nn_from_cache: every ICP row takes the fused B2",
     }
     row["shape"] = [k, n]
     emit({"phase": "kernel_check", "path": path, "kernel": "nn_argmin", "equal_d2": same_d2,
           "equal_k": same_k, "nan_and_empty_probes": probes, "finite_queries": finite,
-          "gbytes_per_s": (4.0 * (3 * k * n + 3 * n) + 8.0 * n) / ms / 1e6,
+          "gbytes_per_s": nbytes / ms / 1e6, "device_gbytes_per_s": nbytes / device_ms / 1e6,
+          "cold_kernel_gbytes_per_s": nbytes / cold_kernel_ms / 1e6, "cold_kernel_records": cold_records,
           "seconds": time.perf_counter() - t0, **row})
     if not ok:
-        raise RuntimeError(f"nn_argmin disagrees with its plain version: d2 {same_d2}, k {same_k}, "
-                           f"probes {probes}, finite {finite}")
+        raise RuntimeError(f"nn_argmin disagrees with its plain version at {row['shape']}: d2 {same_d2}, "
+                           f"k {same_k}, probes {probes}, finite {finite}")
     return row
 
 
@@ -1149,8 +1225,11 @@ def drive_driver(dev, peaks, rows):
     del planes
     rows["gn_moments_from_cache"] = check_gn_lanes("driver", champs, src, mask, INITIAL_THRESHOLD / 7,
                                                    7 * INITIAL_THRESHOLD, peaks)
-    rows["nn_argmin"] = check_nn_argmin("driver", caches[0], src[0], peaks)
-    del grid, p3, m3, caches, champs
+    cache = (caches[0].cx, caches[0].cy, caches[0].cz)
+    rows["nn_argmin"] = check_nn_argmin("driver", *cache, src[0], peaks)
+    rows["nn_argmin_k7"] = check_nn_argmin("driver_k7", *(c[:NN_SMALL_K].contiguous() for c in cache), src[0],
+                                           peaks)
+    del grid, p3, m3, caches, champs, cache
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
@@ -2312,6 +2391,7 @@ def drive_odometry(dev, peaks, rows):
                                                                   peaks)
     sigma = kiss.adaptive_threshold.get_threshold()
     rows["gn_moments_from_cache"] = check_gn_lanes("odometry", champs, src, mask, sigma / 3, 3 * sigma, peaks)
+    rows["nn_argmin"] = check_nn_argmin("odometry", champs[0, 0], champs[1, 0], champs[2, 0], src[0], peaks)
     del planes, caches, champs, grid, kiss
     torch.cuda.empty_cache()
 
@@ -2390,6 +2470,122 @@ def drive_odometry_xd(dev):
     return launches
 
 
+def drive_odometry_readers(dev, drive):
+    """The odometry_readers phase: the first ODO_READER_FRAMES frames of the
+    odometry phase's drive written in MulRan's layout (`Ouster/<ns>.bin`,
+    x y z intensity f32; `global_pose.csv`: t and the base's 3 x 4 pose,
+    the lidar's truth conjugated by the base-to-lidar calibration) and in
+    Boreas's (`lidar/<n>.bin`, 6 f32 a point; `applanix/lidar_poses.csv`:
+    t, x y z, velocities, roll pitch yaw, rates), each read through
+    `dataset_factory` and run by `OdometryPipeline` with the default config
+    on the card (its files written in a temporary directory). Gated on every
+    frame read back equal to the f32 frame written, cast to float64; the two
+    runs' poses bit for bit equal (the same points in the same order); every
+    pose within the odometry's pose gate of the drive's truth; B2 launches =
+    step calls and B3 launches = rebuild rounds in each run; and each
+    reader's ground truth equal to the written poses after its documented
+    transform (MulRan: T P0^-1 Pi T^-1 with T its base-to-lidar matrix,
+    within READER_GT_ATOL; Boreas: C0^-1 Ci, Ci from its roll, pitch and
+    yaw, stored in f32, within READER_GT_F32_ATOL)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.kiss.datasets import MulranDataset, dataset_factory
+    from vfmreg_tpu_torch.kiss.pipeline import OdometryPipeline
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.registration import icp
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ
+
+    t0 = time.perf_counter()
+    n = ODO_READER_FRAMES
+    frames = [drive[i] for i in range(n)]
+    truth = drive.gt_poses[:n]
+    rng = np.random.RandomState(SEED)
+    T = MulranDataset.T_LIDAR_TO_BASE
+    base = np.linalg.inv(T) @ truth @ T  # the base poses whose lidar poses are the truth
+    stamps = 1566534558000000000 + 100_000_000 * np.arange(n)  # ns, 10 Hz
+    ypr = Rotation.from_matrix(truth[:, :3, :3].transpose(0, 2, 1)).as_euler("ZYX")  # C = (Rz Ry Rx)^T
+    applanix = np.zeros((n, 13))
+    applanix[:, 0] = stamps * 1e-9
+    applanix[:, 1:4] = truth[:, :3, 3]
+    applanix[:, 7:10] = ypr[:, ::-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        mulran, boreas = Path(tmp) / "mulran", Path(tmp) / "boreas"
+        for d in (mulran / "Ouster", boreas / "lidar", boreas / "applanix"):
+            d.mkdir(parents=True)
+        for stamp, f in zip(stamps, frames):  # MulRan: x y z intensity; Boreas: 6 floats a point
+            np.c_[f, rng.uniform(0, 1, (len(f), 1))].astype(np.float32).tofile(mulran / "Ouster" / f"{stamp}.bin")
+            np.c_[f, rng.uniform(0, 1, (len(f), 3))].astype(np.float32).tofile(boreas / "lidar" / f"{stamp}.bin")
+        np.savetxt(mulran / "global_pose.csv", np.c_[stamps, base[:, :3, :4].reshape(n, 12)], delimiter=",")
+        np.savetxt(boreas / "applanix" / "lidar_poses.csv", applanix, delimiter=",",
+                   header="GPSTime,x,y,z,vel_x,vel_y,vel_z,roll,pitch,heading,ang_vel_z,ang_vel_y,ang_vel_x")
+        written = np.loadtxt(mulran / "global_pose.csv", delimiter=",")[:, 1:].reshape(n, 3, 4)
+        P = np.tile(np.eye(4), (n, 1, 1))
+        P[:, :3] = written
+        want_gt = {"mulran": (T @ np.linalg.inv(P[0]) @ P @ np.linalg.inv(T), READER_GT_ATOL)}
+        rows = np.loadtxt(boreas / "applanix" / "lidar_poses.csv", delimiter=",", skiprows=1)
+        C = np.tile(np.eye(4), (n, 1, 1))
+        C[:, :3, :3] = Rotation.from_euler("ZYX", rows[:, [9, 8, 7]]).as_matrix().transpose(0, 2, 1)
+        C[:, :3, 3] = rows[:, 1:4]
+        want_gt["boreas"] = (np.linalg.inv(C[0]) @ C, READER_GT_F32_ATOL)
+        emit({"phase": "odometry_readers_data", "seconds": time.perf_counter() - t0, "frames": n,
+              "points_per_frame": [int(f.shape[0]) for f in frames]})
+
+        runs = {}
+        for name, root in (("mulran", mulran), ("boreas", boreas)):
+            t1 = time.perf_counter()
+            ds = dataset_factory(name, root)
+            read_ok = len(ds) == n and all(np.array_equal(ds[i][0], frames[i].astype(np.float64))
+                                           for i in range(n))
+            gt, atol = want_gt[name]
+            gt_err = float(np.abs(np.asarray(ds.gt_poses, dtype=np.float64) - gt).max())
+            read_s = time.perf_counter() - t1
+            pipe = OdometryPipeline(ds, device=dev)
+            pipe.config.out_dir = str(Path(tmp) / "results" / name)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t1 = time.perf_counter()
+            with icp.recording_loops() as calls:
+                results = pipe.run()
+            seconds = time.perf_counter() - t1
+            launches = dict(_build.LAUNCHES)
+            loop = collections.Counter()
+            for c in calls:
+                loop.update(c["loop"])
+            iterations = [i for c in calls for i in c["iterations"]]
+            loops = loop_check(loop, iterations, [k for c in calls for k in c["rebuilds"]], GN_STEPS_PER_READ,
+                               sum(iterations))
+            launches_ok = (launches.get("gn_moments_from_cache", 0) == loop["step_calls"] > 0
+                           and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"] > 0
+                           and loops["ok"])
+            poses = np.stack(pipe.poses)
+            errs = [compute_errors(p, t) for p, t in zip(poses, truth)]
+            poses_ok = len(poses) == n and all(rte < ODO_RTE_GATE_M and rre < ODO_RRE_GATE_DEG
+                                               for rte, rre in errs)
+            files = sorted(p.name for p in Path(pipe.results_dir).iterdir())
+            ok = read_ok and gt_err <= atol and launches_ok and poses_ok
+            runs[name] = poses
+            emit({"phase": "odometry_readers", "reader": name, "dataset": type(ds).__name__, "ok": ok,
+                  "frames_read_equal": read_ok, "gt_max_abs_err": gt_err, "gt_atol": atol,
+                  "read_seconds": read_s, "seconds": seconds, "seconds_per_frame": seconds / n,
+                  "max_rte_m": max(e[0] for e in errs), "max_rre_deg": max(e[1] for e in errs),
+                  "launches": launches, "icp_loop": loops, "results": results.items(), "files": files,
+                  "nvidia_smi": nvidia_smi()})
+            if not ok:
+                raise RuntimeError(f"odometry_readers {name}: frames {read_ok}, gt {gt_err} > {atol}, "
+                                   f"launches {launches_ok} ({launches}, {loops}), poses {poses_ok} ({errs})")
+    same = bool(np.array_equal(runs["mulran"], runs["boreas"]))
+    emit({"phase": "odometry_readers_equal", "ok": same, "poses_equal": same,
+          "max_abs_diff": float(np.abs(runs["mulran"] - runs["boreas"]).max())})
+    if not same:
+        raise RuntimeError("odometry_readers: the MulRan and Boreas runs of the same frames gave other poses")
+
+
 def main() -> int:
     import torch
 
@@ -2413,6 +2609,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -2465,8 +2662,12 @@ def main() -> int:
     rows["slice"]["gn_moments_from_cache"] = check_gn_lanes(
         "slice", champs, src, m1, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
     check_gn("slice", caches[0], src[0], src[0].mean(dim=0).tolist(), KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
-    rows["slice"]["nn_argmin"] = check_nn_argmin("slice", caches[0], src[0], peaks)
-    del grid, planes, caches, champs
+    cache = (caches[0].cx, caches[0].cy, caches[0].cz)
+    rows["slice"]["nn_argmin"] = check_nn_argmin("slice", *cache, src[0], peaks)
+    rows["slice"]["nn_argmin_ragged"] = check_nn_argmin(
+        "slice_ragged", *(c[:, :NN_RAGGED_N].contiguous() for c in cache), src[0, :NN_RAGGED_N].contiguous(),
+        peaks)
+    del grid, planes, caches, champs, cache
     torch.cuda.empty_cache()
 
     # The main path, counted and timed end to end (grid build included).
@@ -2519,7 +2720,9 @@ def main() -> int:
     del driver_scene
     torch.cuda.empty_cache()
     rows["odometry"] = {}
-    by_path["odometry"], _ = drive_odometry(dev, peaks, rows["odometry"])
+    by_path["odometry"], drive = drive_odometry(dev, peaks, rows["odometry"])
+    drive_odometry_readers(dev, drive)
+    del drive
     by_path["odometry_xd"] = drive_odometry_xd(dev)
     torch.cuda.empty_cache()
     rows["descriptor"] = {}
@@ -2547,6 +2750,13 @@ def main() -> int:
         newest = list(per_path)[-1]
         kernels.append({**rows[newest][kname], "launches": per_path[newest]["launches"],
                         "numbers_of_path": newest, "paths": per_path})
+    # B4's times at every shape it was checked at, the two off-path shapes
+    # (ragged n, K = 7) included.
+    b4_keys = ("shape", "ms", "device_ms", "cold_ms", "cold_kernel_ms", "host_ms", "bound_ms")
+    next(k for k in kernels if k["name"] == "nn_argmin")["shapes"] = [
+        {"path": path, "check": key, **{k: r[k] for k in b4_keys}}
+        for path, checked in rows.items() for key, r in checked.items() if key.startswith("nn_argmin")]
+    emit({"phase": "script", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -358,9 +358,31 @@ def test_dataset_readers_match_jax(tmp_path):
     for i in range(2):
         np.testing.assert_array_equal(got[i], ref[i])
 
-    for name in ("mulran", "ouster", "rosbag", "tum"):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            tdatasets.dataset_factory(name, tmp_path)
+    # The readers ported after these three: a MulRan scan and a TUM depth
+    # frame read as the reference reads them; the container readers raise
+    # the reference's ImportError without their packages.
+    (tmp_path / "mulran" / "Ouster").mkdir(parents=True)
+    np.c_[clouds[0], np.ones(50)].astype(np.float32).tofile(tmp_path / "mulran" / "Ouster" / "1566534558000000.bin")
+    got, ref = (m.dataset_factory("mulran", tmp_path / "mulran") for m in (tdatasets, jdatasets))
+    assert len(got) == len(ref) == 1 and got.gt_poses is None and ref.gt_poses is None
+    for a, b in zip(got[0], ref[0]):
+        np.testing.assert_array_equal(a, b)
+    image = pytest.importorskip("PIL.Image")
+    (tmp_path / "tum" / "depth").mkdir(parents=True)
+    image.fromarray(rng.randint(0, 30000, (6, 8)).astype(np.uint16)).save(tmp_path / "tum" / "depth" / "0.png")
+    (tmp_path / "tum" / "depth.txt").write_text("1.00 depth/0.png\n")
+    (tmp_path / "tum" / "groundtruth.txt").write_text("1.01 1 2 3 0 0 0 1\n")
+    got, ref = (m.dataset_factory("tum", tmp_path / "tum") for m in (tdatasets, jdatasets))
+    np.testing.assert_array_equal(got.gt_poses, ref.gt_poses)
+    np.testing.assert_array_equal(got[0], ref[0])
+    assert got[0].shape[0] > 0
+    for name in ("ouster", "rosbag"):
+        errors = []
+        for factory in (tdatasets.dataset_factory, jdatasets.dataset_factory):
+            with pytest.raises(ImportError) as e:
+                factory(name, gen / "scan_10.bin")
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
     with pytest.raises(ValueError, match="Unknown dataloader"):
         tdatasets.dataset_factory("nope", tmp_path)
 
