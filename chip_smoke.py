@@ -12,7 +12,7 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives twelve paths. The first five run B1-B3, the
+one-lane entries), and drives thirteen paths. The first six run B1-B3, the
 odometry B2 and B3, the descriptor passes and featup B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
@@ -74,6 +74,22 @@ odometry B2 and B3, the descriptor passes and featup B5:
   KITTI pair's against the drive's motion), every pose finite and rigid,
   B1-B3 launched as the searches and loops count in each mode, seconds per
   mode with the host clustering apart, and B1-B3 at the removal's shapes;
+* node_sharded: the driver row's multi-device modes at world size 1 through
+  NCCL (one rank over a FileStore in a temporary directory; the card
+  machine has one card, so the modes' scaling over cards is not measured
+  here): the single-device row in turns without and with
+  VFMREG_PROFILE_DRIVER (the per-stage barriers' cost; equal results) and
+  once with VFMREG_PROFILE_ICP_ITERS, then `precompute_scene_batched(mesh=)`
+  scan-sharded and map-sharded on the driver scene: every pose and count
+  equal bit for bit to the single-device row's (the map-sharded vanilla
+  row, one full-budget loop as the reference runs it, to the row under
+  VFMREG_PROFILE_ICP_ITERS), the recall gate, B1-B3 launched as the loops
+  count, the collective calls counted and timed by CUDA events;
+  `RegistrationNode(map_sharding=True)` on the node scene at 2 scans equal
+  to the default node; and B2 at the merged widths K = 64 and 128 (the
+  driver map's stored rows split in 2 and 4 contiguous blocks, a grid and
+  B3 per block, the planes concatenated): against its plain version, and
+  one GN step at refresh_interval=1 equal bit for bit to the one grid's;
 * odometry: KISS odometry (`kiss.kiss_icp.KissICP`, the default config:
   100 m range, 1 m voxels, 20 points a voxel, the map resident on the card)
   over a 200-frame drive of `pipeline.synthetic.SyntheticDrive` (122,880
@@ -150,7 +166,9 @@ kernel_check for B2 and B3 at the
 fpfh refine's start, node_experiments_data, node_experiments_removal,
 node_experiments_insertion, node_experiments_scan_to_scan_data,
 node_experiments_scan_to_scan_kitti, kernel_check for B1-B3 at the
-removal's shapes, odometry_data, odometry, kernel_check for B2 and
+removal's shapes, node_sharded_scan_sharded, node_sharded_map_sharded,
+node_sharded_node, kernel_check for B2 at K = 64 and 128,
+node_sharded_merged_caches, node_sharded, odometry_data, odometry, kernel_check for B2 and
 B3 at the odometry's shapes, kernel_check for B4 at the odometry's cache,
 odometry_free, odometry_idle, odometry_readers_data, odometry_readers for
 each reader, odometry_readers_equal, odometry_xd, kernel_check for B5
@@ -166,6 +184,7 @@ exits nonzero before printing any result.
 """
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -284,6 +303,9 @@ SPARSE_CONV_ATOL, RESUNET_ATOL = 1e-4, 1e-5
 EXP_SCANS, EXP_TREES, EXP_TREE_POINTS, EXP_REMOVAL_P, EXP_INSERT_P = 2, 6, 3000, 0.5, 0.05
 EXP_INSERT_FILES, EXP_KITTI_FRAMES = 5, 12
 EXP_TREE_COLORS = ((217, 60, 165), (118, 105, 57))
+# node_sharded phase: the node at NODE_SHARDED_SCANS scans with and without
+# map_sharding; B2 at the merged widths of MERGED_WORLDS ranks (K = 32 x world).
+NODE_SHARDED_SCANS, MERGED_WORLDS = 2, (2, 4)
 # B4 is checked at each path's champion cache and at two shapes its design
 # handles apart: the slice cache's first NN_RAGGED_N columns (n not a
 # multiple of 4, so no row starts 16-byte aligned and every tile is read by
@@ -303,6 +325,21 @@ PATH_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def env_switch(name):
+    """The driver's profiling switch `name` (VFMREG_PROFILE_DRIVER or
+    VFMREG_PROFILE_ICP_ITERS) set to 1 for the block."""
+    kept = os.environ.get(name)
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if kept is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = kept
 
 
 def nvidia_smi():
@@ -1257,13 +1294,20 @@ def drive_driver(dev, peaks, rows):
                    and all(v["ok"] for v in loops.values()))
     table = rn.recall_table(rn.method_errors(res))
 
-    # A second call: the same poses, iterations and rebuilds, bit for bit.
-    again = rn.precompute_scene_batched(scene, lm, device=dev)
+    # A second call, under VFMREG_PROFILE_DRIVER (its seconds by stage): the
+    # same poses, iterations and rebuilds, bit for bit.
+    import io
+
+    profile_out = io.StringIO()
+    with env_switch("VFMREG_PROFILE_DRIVER"), contextlib.redirect_stdout(profile_out):
+        again = rn.precompute_scene_batched(scene, lm, device=dev)
     repeat_ok = (all(np.array_equal(res[k], again[k]) for k in ("gt", "vfm_ransac_raw", "vfm_ransac_icp", "icp"))
                  and all(st[k] == again["stats"][k] for k in ("iterations", "rebuilds", "settled", "loop")))
     emit({"phase": "driver", "ok": lanes_ok and launches_ok and repeat_ok, "seconds": seconds,
           "reg_per_s": BATCH / seconds, "batch": BATCH, "map_points": N_MAP, "scan_points": N_SCAN,
-          "dim": DIM, "stage_seconds": st["seconds"], "icp_width": st["icp_width"],
+          "dim": DIM, "stage_seconds": again["stats"]["seconds"],
+          "stage_seconds_of": "the second call, under VFMREG_PROFILE_DRIVER=1",
+          "profile_line": profile_out.getvalue().strip(), "icp_width": st["icp_width"],
           "corr_width": st["corr_width"], "corr_counts": res["corr_counts"],
           "snap_counts": res["snap_counts"], "scan_sizes": res["scan_sizes"], "retried": res["retried"],
           "rte_m": {k: [e[0] for e in v] for k, v in errs.items()},
@@ -1271,7 +1315,7 @@ def drive_driver(dev, peaks, rows):
           "iterations": st["iterations"], "settled": st["settled"], "rebuilds": st["rebuilds"],
           "gn_iterations": gn_iterations, "champion_rebuilds": rebuilds, "launches": launches,
           "gn_steps_per_read": GN_STEPS_PER_READ, "icp_rows": loops,
-          "repeat_bit_identical": repeat_ok, "repeat_seconds": again["stats"]["seconds"],
+          "repeat_bit_identical": repeat_ok,
           "recall_vs_gt_icp": {k: dict(zip([f"{t},{r}" for t, r in rn.THRESHOLDS], v))
                                for k, v in table.items()},
           "vanilla_recall_vs_true": float(np.mean([rte < RTE_GATE_M and rre < RRE_GATE_DEG
@@ -1315,7 +1359,7 @@ def drive_driver_paths(dev, scene, lm, true_poses):
         _build.reset_launches()
         out = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with env_switch("VFMREG_PROFILE_DRIVER"), contextlib.redirect_stdout(out):
             res = rn.precompute_scene_batched(scn, lm, device=dev, q5_budget=budget)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1437,7 +1481,8 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
             torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out), icp.recording_loops() as calls:
+            with env_switch("VFMREG_PROFILE_DRIVER"), contextlib.redirect_stdout(out), \
+                    icp.recording_loops() as calls:
                 node.run_scene(layout)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -1523,6 +1568,254 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     if not vfm_ok:
         raise RuntimeError(f"register_frame's VFM branch: rte {rte}, rre {rre}, launches {launches}")
     return runs["batched"]["launches"]
+
+
+def _rows_equal(a, b, keys):
+    """The keys of two driver-row results that differ (arrays bit for bit)."""
+    import numpy as np
+
+    return [k for k in keys if not (np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k])]
+
+
+def kept_rows(points, voxel_size, cap):
+    """The rows [K, 3] of points [M, 3] that a grid with `cap` points a voxel
+    keeps: the first `cap` of each voxel in row order (`build_hash_grid`),
+    in row order."""
+    import torch
+
+    from vfmreg_tpu_torch.ops.voxel import voxel_coords
+
+    _, inv = torch.unique(voxel_coords(points, voxel_size), dim=0, return_inverse=True)
+    order = torch.sort(inv, stable=True).indices
+    sorted_inv = inv[order]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=points.device) - torch.searchsorted(sorted_inv, sorted_inv)
+    return points[rank < cap]
+
+
+def lane_champions(grid, src, mask, group):
+    """B3 over every lane at its position: champion planes [3, B, 32, N]."""
+    import torch
+
+    from vfmreg_tpu_torch.ops import champion_kernel as ck
+    from vfmreg_tpu_torch.ops.gn_kernel import REBUILT
+
+    planes, _ = lane_planes(grid, src, mask, group)
+    b, n = src.shape[:2]
+    out = ck.new_champion_buffer(b, n, src.device)
+    ck.champions_from_planes_lanes(planes[0], planes[1], planes[2], src, mask,
+                                   torch.full((b,), REBUILT, dtype=torch.int32, device=src.device), group, out)
+    return out
+
+
+def gn_step_fresh(champs, src, mask, kernel, max_dist):
+    """One B2 step of every lane right after a rebuild at refresh_interval=1
+    (the state of check_gn_lanes): (lane state, moved sources)."""
+    import torch
+
+    from vfmreg_tpu_torch.ops import gn_kernel as gk
+    from vfmreg_tpu_torch.registration.icp import ESTIMATION_THRESHOLD
+
+    b, n = src.shape[:2]
+    center = (torch.where(mask[..., None], src, 0.0).sum(dim=1) / mask.sum(dim=1)[:, None]).contiguous()
+    r_max = torch.sqrt(torch.amax(torch.where(mask, ((src - center[:, None]) ** 2).sum(-1), 0.0), dim=1))
+    st = gk.new_gn_lanes(torch.eye(4).repeat(b, 1, 1), 0, 1000, r_max, 0.5, n)
+    st.ints[:, gk.PHASE] = gk.STEP
+    moved = src.clone()
+    gk.gn_step_lanes(champs[0], champs[1], champs[2], moved, center, kernel, max_dist, ESTIMATION_THRESHOLD, 1, st)
+    return st, moved
+
+
+def drive_node_sharded(dev, peaks, rows, scene, local_map, true_poses):
+    """The node_sharded phase: the driver row's multi-device modes at world
+    size 1 on one card, through NCCL (a one-rank group over a FileStore in a
+    temporary directory), on the driver scene (full width, seed 0).
+
+    * the single-device row in turns without and with
+      VFMREG_PROFILE_DRIVER (the per-stage barriers' cost), the two equal
+      bit for bit, and once with VFMREG_PROFILE_ICP_ITERS (its vanilla row
+      one full-budget loop);
+    * `precompute_scene_batched(mesh=)` scan-sharded
+      (`sharded_driver_stages`) and map-sharded (`map_sharded_driver_stages`,
+      the map's rows on the one rank): every pose and count equal bit for
+      bit to the single-device row's, but the map-sharded vanilla row, one
+      full-budget loop as the reference runs it, equal bit for bit to the
+      row under VFMREG_PROFILE_ICP_ITERS; GT and RANSAC + ICP lanes within
+      the recall gate; B1-B3 launched as the loops count; the collective
+      calls counted and timed by CUDA events;
+    * `RegistrationNode(map_sharding=True)` on the node scene cut to
+      NODE_SHARDED_SCANS scans equal to the default node (at world size 1
+      both take the single-device path, as the reference's do);
+    * B2 at the merged widths K = 32 x world (world 2 and 4): the driver
+      map's stored rows (the first 20 of each voxel, so no shard can hold
+      more than the one grid) split into contiguous blocks, one grid each,
+      B3 at every driver lane's start per block, the planes concatenated as
+      `parallel.mesh.CacheMerge` does: the kernel against its plain version
+      (check_gn_lanes), and one GN step at refresh_interval=1 equal bit for
+      bit to the one grid's step, every query's nearest champion distance
+      equal."""
+    import datetime
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, MAX_POINTS_PER_VOXEL, VOXEL_SIZE
+    from vfmreg_tpu_torch.geometry.metrics import compute_errors
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
+    from vfmreg_tpu_torch.ops.voxel import bucket_size
+    from vfmreg_tpu_torch.parallel import collectives
+    from vfmreg_tpu_torch.parallel.mesh import make_mesh
+    from vfmreg_tpu_torch.pipeline import registration_node as rn
+    from vfmreg_tpu_torch.pipeline.synthetic import scene_file_layout
+    from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
+
+    t_phase = time.perf_counter()
+    raw, raw_mask = rn.stack_scans(scene["scene_point_clouds"], local_map.shape[1])
+    scn = dict(scene, scene_point_clouds_device=(torch.from_numpy(raw).to(dev), torch.from_numpy(raw_mask).to(dev)))
+    lm = torch.from_numpy(local_map).to(dev)
+    keys = ("gt", "vfm_ransac_raw", "vfm_ransac_ortho", "vfm_ransac_icp", "icp", "corr_counts", "snap_counts",
+            "map_size", "scan_sizes", "retried")
+
+    def row(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = rn.precompute_scene_batched(scn, lm, device=dev, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # The barriers' cost: the single-device row in turns, off, on, on, off.
+    barrier = {"off": [], "on": []}
+    results = {}
+    for turn in ("off", "on", "on", "off", "off", "on"):
+        with env_switch("VFMREG_PROFILE_DRIVER") if turn == "on" else contextlib.nullcontext():
+            results[turn], secs = row()
+        barrier[turn].append(secs)
+    plain = results["off"]
+    switch_diff = _rows_equal(results["on"], plain, keys)
+    with env_switch("VFMREG_PROFILE_ICP_ITERS"):
+        one_loop, _ = row()
+    icp_switch_diff = _rows_equal(one_loop, plain, [k for k in keys if k != "icp"])
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0, timeout=datetime.timedelta(seconds=120),
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            meshes = {"scan_sharded": {"mesh": make_mesh(("data",))},
+                      "map_sharded": {"mesh": make_mesh(("model",)), "map_sharded": True}}
+            for name, kw in meshes.items():
+                row(**kw)  # warm-up: the first collectives set up the communicator
+                _build.reset_launches()
+                with collectives.recording() as log:
+                    res, secs = row(**kw)
+                runs[name] = dict(res=res, seconds=secs, launches=dict(_build.LAUNCHES),
+                                  collectives=collectives.collective_ms(log),
+                                  by_op=dict(collections.Counter(r["op"] for r in log)))
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+
+    ok_all = switch_diff == [] and icp_switch_diff == []
+    by_path = None
+    for name, r in runs.items():
+        res, st = r["res"], r["res"]["stats"]
+        diff = _rows_equal(res, plain, [k for k in keys if not (name == "map_sharded" and k == "icp")])
+        if name == "map_sharded":
+            diff += ["icp (against the one full-budget loop)"] * (not np.array_equal(res["icp"], one_loop["icp"]))
+        errs = {k: [compute_errors(p, t) for p, t in zip(res[k], true_poses)] for k in ("gt", "vfm_ransac_icp")}
+        lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for v in errs.values() for rte, rre in v)
+        loops = {k: loop_check(st["loop"][k], st["iterations"][k], st["rebuilds"][k], GN_STEPS_PER_READ,
+                               max(st["iterations"][k])) for k in st["loop"]}
+        launches = r["launches"]
+        launches_ok = (launches.get("cosine_argmax", 0) >= 1
+                       and launches.get("gn_moments_from_cache", 0) == sum(v["step_calls"] for v in loops.values())
+                       and launches.get("champions_from_planes", 0) == sum(v["rebuild_rounds"] for v in loops.values())
+                       and all(v["ok"] for v in loops.values()))
+        ok = diff == [] and lanes_ok and launches_ok and r["collectives"]["calls"] > 0
+        ok_all &= ok
+        emit({"phase": f"node_sharded_{name}", "ok": ok, "backend": backend, "world_size": 1,
+              "seconds": r["seconds"], "single_device_seconds": barrier["off"], "differs_from_single_device": diff,
+              "collective_calls": r["collectives"]["calls"], "collective_ms": r["collectives"]["ms"],
+              "collectives_by_op": r["by_op"], "launches": launches, "icp_rows": loops,
+              "rte_m": {k: [e[0] for e in v] for k, v in errs.items()},
+              "rre_deg": {k: [e[1] for e in v] for k, v in errs.items()}})
+        by_path = launches
+        if not ok:
+            raise RuntimeError(f"node_sharded {name}: differs {diff}, recall {lanes_ok} ({errs}), launches "
+                               f"{launches_ok} ({launches}, {loops}), collectives {r['collectives']}")
+
+    # The node with map_sharding at world size 1 against the default node.
+    layout = scene_file_layout(scene, local_map)
+    layout = dict(layout, scene_poses=layout["scene_poses"][:NODE_SHARDED_SCANS],
+                  scene_point_clouds=layout["scene_point_clouds"][:NODE_SHARDED_SCANS])
+    nodes = {}
+    methods = dict(methods_ransac=[("vfm", True)], methods_teaser=[], methods_pointdsc=[])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as empty, contextlib.redirect_stdout(io.StringIO()):
+        for name, kw in (("default", {}), ("map_sharding", {"map_sharding": True})):
+            node = rn.RegistrationNode(empty, device=dev, **methods, **kw)
+            node.run_scene(layout)
+            nodes[name] = node
+    node_seconds = time.perf_counter() - t0
+    a, b = nodes["default"], nodes["map_sharding"]
+    node_ok = (a.trans_errors == b.trans_errors and a.rot_errors == b.rot_errors and b.mesh is None
+               and len(a.trans_errors["vfm_ransac_icp"]) == NODE_SHARDED_SCANS)
+    emit({"phase": "node_sharded_node", "ok": node_ok, "scans": NODE_SHARDED_SCANS, "seconds": node_seconds,
+          "equal": node_ok, "rte_m": b.trans_errors, "rre_deg": b.rot_errors})
+    ok_all &= node_ok
+
+    # B2 at the merged widths.
+    sigma = INITIAL_THRESHOLD
+    grid = rn.build_map_grid(lm, VOXEL_SIZE, dev)
+    p3, _, m3, counts3, *_ = rn._preprocess_scans_device(*scn["scene_point_clouds_device"], VOXEL_SIZE, 2048)
+    w = min(bucket_size(int(counts3.max())), p3.shape[1])
+    src, mask = p3[:, :w].contiguous(), m3[:, :w].contiguous()
+    group = champion_group(grid)
+    kept = kept_rows(lm[:, :3].contiguous(), VOXEL_SIZE, MAX_POINTS_PER_VOXEL)
+    kept_ok = kept.shape[0] == int(grid.valid.sum())
+    one = lane_champions(grid, src, mask, group)
+    st_one, moved_one = gn_step_fresh(one, src, mask, sigma / 7, 7 * sigma)
+    merged_out = {}
+    for world in MERGED_WORLDS:
+        rows_w = -(-kept.shape[0] // world) * world
+        pts = torch.zeros((rows_w, 3), dtype=torch.float32, device=dev)
+        pts[: kept.shape[0]] = kept
+        valid = torch.arange(rows_w, device=dev) < kept.shape[0]
+        k = rows_w // world
+        merged = torch.cat([lane_champions(build_hash_grid(pts[r * k : (r + 1) * k], VOXEL_SIZE,
+                                                           mask=valid[r * k : (r + 1) * k],
+                                                           max_points_per_voxel=MAX_POINTS_PER_VOXEL),
+                                           src, mask, group) for r in range(world)], dim=2).contiguous()
+        path = f"node_sharded_k{32 * world}"
+        rows[path] = {"gn_moments_from_cache": check_gn_lanes(path, merged, src, mask, sigma / 7, 7 * sigma, peaks)}
+        st_m, moved_m = gn_step_fresh(merged, src, mask, sigma / 7, 7 * sigma)
+
+        def best_d2(c):
+            d = [(c[i] - src[..., i][:, None, :]) ** 2 for i in range(3)]
+            return torch.amin(d[0] + d[1] + d[2], dim=1)
+
+        same_nn = torch.equal(best_d2(merged), best_d2(one))
+        same_step = all(torch.equal(x, y) for x, y in ((st_m.moments, st_one.moments), (st_m.T, st_one.T),
+                                                         (st_m.ints, st_one.ints), (moved_m, moved_one)))
+        merged_out[path] = {"shape": list(merged.shape[1:]), "nearest_distances_equal": same_nn,
+                            "step_equal_to_one_grid": same_step,
+                            "max_abs_T_diff": float((st_m.T - st_one.T).abs().max())}
+        ok_all &= same_nn and same_step
+    emit({"phase": "node_sharded_merged_caches", "ok": kept_ok and ok_all, "kept_rows": int(kept.shape[0]),
+          "one_grid_rows": int(grid.valid.sum()), "map_rows": int(lm.shape[0]), **merged_out})
+    emit({"phase": "node_sharded", "ok": kept_ok and ok_all, "seconds": time.perf_counter() - t_phase,
+          "single_device_seconds": barrier, "profile_driver_equal": switch_diff == [],
+          "profile_icp_iters_equal_but_vanilla": icp_switch_diff == []})
+    if not (kept_ok and ok_all):
+        raise RuntimeError(f"node_sharded: switches {switch_diff} / {icp_switch_diff}, node {node_ok}, "
+                           f"kept rows {kept_ok}, merged caches {merged_out}")
+    return by_path
 
 
 def exp_tree(rng, center_xy, colour, d, n=EXP_TREE_POINTS):
@@ -2717,6 +3010,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["node_experiments"] = {}
     by_path["node_experiments"] = drive_node_experiments(dev, peaks, rows["node_experiments"], *driver_scene)
+    torch.cuda.empty_cache()
+    by_path["node_sharded"] = drive_node_sharded(dev, peaks, rows, *driver_scene)
+    for world in MERGED_WORLDS:  # no path launches B2 at these widths on one card
+        by_path[f"node_sharded_k{32 * world}"] = {}
     del driver_scene
     torch.cuda.empty_cache()
     rows["odometry"] = {}

@@ -22,8 +22,10 @@ PointDSC:
   (`tests/test_harness.py`'s bar), the TEASER rows (serial in both) equal;
 * the RobotCar GT fixes follow the file name, in both paths; the
   map-descriptor cache resets per scene; `dump_errors`' pickle reads to the
-  same text with both packages' `print_errors`; `map_sharding`, not
-  ported, raises; the CLI runs the folder and writes the pickle;
+  same text with both packages' `print_errors`; `map_sharding` without a
+  process group keeps the single-device path (its multi-device form is
+  tests/test_torch_mesh_driver.py's); the CLI runs the folder and writes
+  the pickle;
 * `dump_viz_dir` (the reference, the port serial with the reference's
   picks, the port batched): the same files; the map's bytes equal; every
   file parses with the vertex and edge counts of its header
@@ -274,12 +276,13 @@ def test_dump_errors_reads_the_same_in_both_packages(runs, tmp_path, capsys):
 
 
 def test_unported_options_raise(scene_h5, tmp_path, monkeypatch):
-    """Only `map_sharding` raises, naming A15b; the experiment options, the
-    visualization dump (class and CLI) and the fcgf PointDSC column, which
-    raised before they were ported, run (the experiments' own tests are
-    tests/test_torch_experiments.py)."""
-    with pytest.raises(NotImplementedError, match="A15b"):
-        trn.RegistrationNode(scene_h5, device="cpu", map_sharding=True)
+    """No option raises any more: `map_sharding`, without a process group of
+    more than one rank, keeps the single-device path as the reference's does
+    on one device; the experiment options, the visualization dump (class and
+    CLI) and the fcgf PointDSC column, which raised before they were ported,
+    run (the experiments' own tests are tests/test_torch_experiments.py)."""
+    node = trn.RegistrationNode(scene_h5, device="cpu", map_sharding=True)
+    assert node.mesh is None and not node._map_sharded and node._sharded_ransac is None
     for kw in ({"cluster_removal_prob": 0.5}, {"cluster_insertion_dir": scene_h5}, {"scan_to_scan": "data"},
                {"scan_to_scan": "kitti", "kitti_dir": scene_h5}):
         node = trn.RegistrationNode(scene_h5, device="cpu", **kw)

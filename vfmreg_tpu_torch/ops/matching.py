@@ -3,7 +3,8 @@
 Counterpart of the scan-to-map parts of `vfmreg_tpu/ops/matching.py`: the
 L2-renormalized cosine 1-NN with a minimum-similarity gate
 (`get_vfm_correspondences`, `:155`), its flattened-batch form (`:251`) and
-the masked median / MAD (`:120-137`), and the chunked Euclidean 1-NN
+the masked median / MAD (`:120-137`), the map-sharded search
+(`get_vfm_correspondences_map_sharded`, `:215`), and the chunked Euclidean 1-NN
 (`_chunked_argmin_l2`, `:79`) that the snap filter runs. The arg-max goes
 through kernel B1 (`ops/cosine_kernel.py`) and follows its contract: masked
 map rows score -1e30 and the index is clamped to M-1. The reference's CPU
@@ -18,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax
+from vfmreg_tpu_torch.parallel import collectives
 
 _F32_MAX = torch.finfo(torch.float32).max
 
@@ -154,6 +156,34 @@ def get_vfm_correspondences_batched(
     best_sim = best_sim.reshape(b, n)
     target = map_points[best_idx.to(torch.int64)].reshape(b, n, 3)
     return _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity)
+
+
+def get_vfm_correspondences_map_sharded(
+    map_points, map_feats, map_mask,  # [M / world, ...]: this rank's rows of the map
+    scan_points,  # [..., N, 3], the same on every rank
+    scan_feats,  # [..., N, D]
+    scan_mask,  # [..., N]
+    group,
+    min_cosine_similarity: float = 0.8,
+) -> VFMCorrespondences:
+    """`get_vfm_correspondences(_batched)` with the map's rows sharded over
+    the ranks of `group` (a `torch.distributed` group): kernel B1 over this
+    rank's rows, then one gather of every rank's best similarities and
+    matched points, and the first maximum over the ranks. With contiguous
+    row shards in rank order, the first maximum within a shard and across
+    the ranks is the lowest global row, as in the single-device search.
+    Every rank of the group calls it and gets the same result."""
+    lead = scan_feats.shape[:-1]
+    sim_s, idx_s = _best_match(scan_feats.reshape(-1, scan_feats.shape[-1]), map_feats, map_mask)
+    tgt_s = map_points[idx_s.to(torch.int64)]
+    sims = collectives.all_gather(sim_s[None], group)  # [world, Q]
+    tgts = collectives.all_gather(tgt_s[None], group)  # [world, Q, 3]
+    best_sim = torch.amax(sims, dim=0)
+    iota = torch.arange(sims.shape[0], device=sims.device)[:, None]
+    rank = torch.amin(torch.where(sims == best_sim, iota, sims.shape[0]), dim=0)  # the lowest rank
+    target = torch.gather(tgts, 0, rank[None, :, None].expand(1, -1, 3))[0]
+    return _assemble(scan_points, scan_mask, best_sim.reshape(lead), target.reshape(*lead, 3),
+                     min_cosine_similarity)
 
 
 class MutualNN(NamedTuple):

@@ -30,9 +30,25 @@ correspondence counts (which decide the retry and the ICP width), the RANSAC
 poses (for the f64 orthogonalization), and one final read; the re-match and
 retry paths add one read each. The ICP rows read a small vector of lane
 state once per `GN_STEPS_PER_READ` GN steps, because their loops decide on
-the host where the lanes go between steps. Every stage ends with a
-synchronize on the card, so the stage times in `stats["seconds"]` are what
-each stage took.
+the host where the lanes go between steps. `stats["seconds"]` holds the
+row's wall time ("total"). With `VFMREG_PROFILE_DRIVER=1` every stage ends
+with a synchronize on the card, its seconds land under its own key, and the
+row prints the reference's `[profile] driver stage breakdown (s): ...` line:
+the barriers take away the overlap of host and device that the row has
+without them, so the row's time under the switch is not its time.
+`VFMREG_PROFILE_ICP_ITERS=1` prints each single-device ICP row's lanes'
+iterations and settled flags, and runs the vanilla row as one full-budget
+loop, as the reference does (`:1112-1122`, `:1155`).
+
+With a `mesh` (`parallel.mesh.make_mesh`; every rank of its group calls the
+row with the same scene) the stages run on several devices, as the
+reference's do on a device mesh (`:796-840`, `:1103-1110`): the scan axis
+split over the ranks (`sharded_driver_stages`, the batch padded to a
+multiple of the world size by repeating scan 0; with fewer scans than
+ranks only RANSAC is split, by hypotheses), or with `map_sharded` the map's
+rows (`map_sharded_driver_stages`, the rows padded to ceil(bucket / world)
+x world; the vanilla row then runs as one full-budget loop, as the
+reference's does).
 
 `RegistrationNode` is the scene loop around that row (reference
 `registration_node.py:157-1519`): it reads `scene_*.h5` files, accumulates
@@ -53,7 +69,9 @@ batched row on a small synthetic scene.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
+import os
 import pickle
 import signal
 import sys
@@ -64,6 +82,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vfmreg_tpu_torch.config import INITIAL_THRESHOLD, MAX_POINTS_PER_VOXEL, VOXEL_SIZE, load_config
 from vfmreg_tpu_torch.data.h5io import read_scenes
@@ -74,11 +93,20 @@ from vfmreg_tpu_torch.ops.matching import (
     VFMCorrespondences, get_vfm_correspondences_batched, mutual_nn_correspondences,
 )
 from vfmreg_tpu_torch.ops.voxel import bucket_size, voxel_down_sample_masked
+from vfmreg_tpu_torch.parallel import collectives
 from vfmreg_tpu_torch.parallel.mesh import (
+    SUM,
     batched_icp_stats,
     batched_icp_two_phase,
     batched_ransac,
+    hypothesis_sharded_batched_ransac,
+    make_mesh,
+    map_sharded_driver_stages,
+    shard_rows,
+    sharded_driver_stages,
+    sharded_ransac,
 )
+from vfmreg_tpu_torch.registration.icp import MAX_NUM_ITERATIONS, BatchedICP
 from vfmreg_tpu_torch.kiss import VoxelHashMap, get_voxel_hash_map, register_frame, voxel_down_sample
 from vfmreg_tpu_torch.registration.ransac import ransac_registration, snap_correspondences
 from vfmreg_tpu_torch.registration.teaser import teaser_registration_exact
@@ -167,6 +195,20 @@ def build_map_grid(local_map, voxel_size: float, dev: torch.device):
                              MAX_POINTS_PER_VOXEL)
 
 
+def _pad_scans(arrays, n_dev: int):
+    """The leading scan axis of each array padded to a multiple of `n_dev`
+    by repeating row 0 (reference `:806-815`); callers cut the rows back."""
+    b0 = arrays[0].shape[0]
+    r = (-b0) % n_dev
+    if r == 0:
+        return tuple(arrays)
+    return tuple(torch.cat([a, a[:1].expand(r, *a.shape[1:])]) for a in arrays)
+
+
+def _first_rows(r: BatchedICP, n: int) -> BatchedICP:
+    return BatchedICP(r.poses[:n], r.iterations[:n], r.settled[:n], r.rebuilds[:n], r.loop)
+
+
 def precompute_scene_batched(
     scene: Dict,
     local_map,
@@ -174,6 +216,8 @@ def precompute_scene_batched(
     q5_budget: int = 2048,
     grid: Optional[HashGrid] = None,
     viz: bool = False,
+    mesh=None,
+    map_sharded: bool = False,
 ) -> Dict:
     """The method row of one scene (see the module docstring).
 
@@ -183,25 +227,33 @@ def precompute_scene_batched(
     stacked. `local_map` is [M, 3 + D]. Runs on `device` (default: the card).
     `grid` is the map's grid where the caller has built it
     (`build_map_grid`'s, or `kiss.mapping.VoxelHashMap.device_grid()` of the
-    same map with descriptors, which is the same grid).
+    same map with descriptors, which is the same grid); the map-sharded mode
+    builds its own. `mesh` (a 1-D `DeviceMesh`) runs the stages over its
+    ranks, scan-sharded or, with `map_sharded`, map-sharded.
 
     Returns the reference's keys: "gt", "vfm_ransac_raw",
     "vfm_ransac_ortho", "vfm_ransac_icp", "icp" ([B, 4, 4] f64),
     "corr_counts", "snap_counts", "map_size", "scan_sizes", "retried",
     "viz_corr" (with `viz`, per scan the snapped pairs RANSAC kept, (src
     [k, 3], tgt [k, 3]) f32, read with the final read; else None), and
-    "stats": per-stage seconds and, per ICP row, GN
-    iterations, settled flags and champion rebuilds per lane, and the row
-    loop's counts (`registration.icp.ICPLanes.loop`: kernel B2 step calls,
-    device reads, kernel B3 launches, lanes rebuilt and gathered)."""
+    "stats": seconds ("total", and per stage under VFMREG_PROFILE_DRIVER)
+    and, per ICP row, GN iterations, settled flags and champion rebuilds
+    per lane, and the row loop's counts (`registration.icp.ICPLanes.loop`,
+    this rank's: kernel B2 step calls, device reads, kernel B3 launches,
+    lanes rebuilt and gathered)."""
     full_precision()
     dev = resolve_device(device)
     sigma, voxel_size = INITIAL_THRESHOLD, VOXEL_SIZE
+    profile = os.environ.get("VFMREG_PROFILE_DRIVER") == "1"
+    profile_icp = os.environ.get("VFMREG_PROFILE_ICP_ITERS") == "1"
 
     seconds: Dict[str, float] = {}
-    clock = [time.perf_counter()]
+    t_start = time.perf_counter()
+    clock = [t_start]
 
     def tic(label):
+        if not profile:
+            return
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         now = time.perf_counter()
@@ -211,7 +263,30 @@ def precompute_scene_batched(
     poses = np.stack([np.asarray(p, dtype=np.float64) for p in scene["scene_poses"]])
     b = poses.shape[0]
 
-    if grid is None:
+    stages = ms = hyp = None
+    n_dev = 1
+    if mesh is not None:
+        axis = mesh.mesh_dim_names[0]
+        group = mesh.get_group(axis)
+        n_dev = torch.distributed.get_world_size(group)
+        if map_sharded:
+            ms = map_sharded_driver_stages(mesh, voxel_size, RANSAC_HYPOTHESES, axis=axis,
+                                           max_points_per_voxel=MAX_POINTS_PER_VOXEL)
+        else:
+            stages = sharded_driver_stages(mesh, RANSAC_HYPOTHESES, axis=axis)
+            hyp = hypothesis_sharded_batched_ransac(mesh, RANSAC_HYPOTHESES, axis=axis)
+
+    if ms is not None:
+        # This rank's grid over its block of the map's rows, padded to
+        # ceil(bucket / world) x world (reference `:823-840`).
+        lm = torch.as_tensor(local_map, dtype=torch.float32).to(dev)
+        m0 = lm.shape[0]
+        rows = -(-max(bucket_size(max(m0, 1)), n_dev) // n_dev) * n_dev
+        padded = torch.zeros((rows, lm.shape[1]), dtype=torch.float32, device=dev)
+        padded[:m0] = lm
+        valid = torch.arange(rows, device=dev) < m0
+        grid = ms["build"](*(shard_rows(a, mesh, axis) for a in (padded[:, :3], padded[:, 3:], valid)))
+    elif grid is None:
         grid = build_map_grid(local_map, voxel_size, dev)
     tic("grid_build")
 
@@ -227,6 +302,11 @@ def precompute_scene_batched(
     tic("preprocess")
 
     def match(qx, qf, qm) -> VFMCorrespondences:
+        if ms is not None:
+            return ms["match"](grid, qx, qf, qm)
+        if stages is not None:
+            corr = stages["match"](grid.points, grid.feats, grid.valid, *_pad_scans((qx, qf, qm), n_dev))
+            return VFMCorrespondences(*(f[: qx.shape[0]] for f in corr))
         return get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, qx, qf, qm)
 
     # 5 m pass for every scan. Sync 1: the counts that decide the retry, and
@@ -274,35 +354,91 @@ def precompute_scene_batched(
         c_src = torch.gather(c_src, 1, order[..., None].expand(-1, -1, 3))
         c_tgt = torch.gather(c_tgt, 1, order[..., None].expand(-1, -1, 3))
         c_mask = torch.gather(c_mask, 1, order)
-    snap_src, snap_tgt, snap_mask = snap_correspondences(
-        c_src, c_tgt, c_mask, s_xyz, s_mask, grid.points, grid.valid
-    )
+    if ms is not None:
+        snap = ms["snap"](c_src, c_tgt, c_mask, s_xyz, s_mask, grid)
+    elif stages is not None:
+        snap = (a[:b] for a in stages["snap"](*_pad_scans((c_src, c_tgt, c_mask, s_xyz, s_mask), n_dev),
+                                              grid.points, grid.valid))
+    else:
+        snap = snap_correspondences(c_src, c_tgt, c_mask, s_xyz, s_mask, grid.points, grid.valid)
+    snap_src, snap_tgt, snap_mask = snap
     tic("snap")
 
-    # Sync 2: the RANSAC poses, orthogonalized on the host in f64.
-    ransac_dev = batched_ransac(snap_src, snap_tgt, snap_mask, seeds=range(b),
-                                num_hypotheses=RANSAC_HYPOTHESES)
+    # Sync 2: the RANSAC poses, orthogonalized on the host in f64. Scan j's
+    # hypotheses come from a generator seeded with j (`parallel.mesh
+    # .rank_seed` on each rank where the budget is split).
+    if ms is not None:
+        ransac_dev = ms["ransac"](snap_src, snap_tgt, snap_mask, range(b))
+    elif stages is not None and b >= n_dev:
+        # At least one scan a rank: each rank runs its scans' whole budget.
+        ransac_dev = stages["ransac"](*_pad_scans((snap_src, snap_tgt, snap_mask), n_dev),
+                                      range(b + (-b) % n_dev))[:b]
+    elif hyp is not None:
+        # Fewer scans than ranks: every scan's budget split over the ranks.
+        ransac_dev = hyp(snap_src, snap_tgt, snap_mask, range(b))
+    else:
+        ransac_dev = batched_ransac(snap_src, snap_tgt, snap_mask, seeds=range(b),
+                                    num_hypotheses=RANSAC_HYPOTHESES)
     ransac_raw = ransac_dev.cpu().numpy().astype(np.float64)
     ransac_ortho = ransac_raw.copy()
     for j in range(b):
         ransac_ortho[j, :3, :3] = orthogonalize(ransac_raw[j, :3, :3])
     tic("ransac")
 
+    def run_icp(guesses, max_dist, kernel, mode="slabs", max_iterations=MAX_NUM_ITERATIONS) -> BatchedICP:
+        """One ICP row over the B scans from `guesses`. `mode` is the
+        reference's rebuild_mode of the row, which it names in its
+        VFMREG_PROFILE_ICP_ITERS line (the port rebuilds by planes in every
+        row)."""
+        g = torch.as_tensor(np.asarray(guesses, dtype=np.float32))
+        if ms is not None:
+            return ms["icp"](grid, s_xyz, s_mask, g, max_dist, kernel, max_iterations)
+        if stages is not None:
+            return _first_rows(stages["icp"](grid, *_pad_scans((s_xyz, s_mask, g), n_dev), max_dist, kernel,
+                                             max_iterations), b)
+        r = batched_icp_stats(grid, s_xyz, s_mask, g, max_dist, kernel, max_iterations)
+        if profile_icp:
+            print(f"[profile] icp lane iters ({mode}): {r.iterations.tolist()} settled={r.settled.tolist()}")
+        return r
+
     # GT ICP and the refine row: two separate rows at (3 sigma, sigma / 3).
-    gt = batched_icp_stats(grid, s_xyz, s_mask, poses, 3 * sigma, sigma / 3)
-    refined = batched_icp_stats(grid, s_xyz, s_mask, ransac_ortho, 3 * sigma, sigma / 3)
+    gt = run_icp(poses, 3 * sigma, sigma / 3)
+    refined = run_icp(ransac_ortho, 3 * sigma, sigma / 3)
     tic("gt_refine_icp")
+    # The vanilla row: two phases, or one full-budget loop in the map-sharded
+    # mode and under the ICP profiler (which needs the full-budget stats).
     eye_b = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
-    vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, eye_b, 7 * sigma, sigma / 7)
+    md7, k7 = 7 * sigma, sigma / 7
+    if ms is not None or profile_icp:
+        vanilla = run_icp(eye_b, md7, k7, mode="planes")
+    elif stages is not None:
+        def far_p1(p, m, g):
+            return _first_rows(stages["icp_planes_p1"](grid, *_pad_scans((p, m, g), n_dev), md7, k7), g.shape[0])
+
+        def far_resume(p, m, g):
+            return stages["icp_planes_resume"](grid, p, m, g, md7, k7)
+
+        vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, torch.from_numpy(eye_b), md7, k7,
+                                        stats_fn=far_p1, resume_fn=far_resume, pad_multiple=n_dev)
+    else:
+        vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, eye_b, md7, k7)
     tic("vanilla_icp")
 
     # Sync 3: every remaining device result in one read.
-    final = torch.cat([snap_mask.sum(dim=1), grid.valid.sum()[None]]).cpu().numpy()
+    n_map = grid.valid.sum()[None]
+    if ms is not None:
+        collectives.all_reduce(n_map, SUM, group)
+    final = torch.cat([snap_mask.sum(dim=1), n_map]).cpu().numpy()
     viz_corr = None
     if viz:
         pairs = [t.cpu().numpy() for t in (snap_src, snap_tgt, snap_mask)]
         viz_corr = [(pairs[0][j][pairs[2][j]], pairs[1][j][pairs[2][j]]) for j in range(b)]
     tic("final_read")
+    seconds["total"] = time.perf_counter() - t_start
+    if profile:
+        print("[profile] driver stage breakdown (s): " + ", ".join(
+            f"{k}={v:.3f}" for k, v in seconds.items() if k != "total")
+            + f" | total={sum(v for k, v in seconds.items() if k != 'total'):.3f}")
     rows = {"gt": gt, "refine": refined, "icp": vanilla}
     return {
         "gt": gt.poses.numpy().astype(np.float64),
@@ -377,10 +513,6 @@ SWEEP_MODES = [
 ]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"RegistrationNode: {what} is not ported yet (ROADMAP {item})")
-
-
 def _pad_rows(arr: np.ndarray, dev: torch.device, n: Optional[int] = None):
     """[k, c] rows zero-padded to n (default `bucket_size(k)`) rows on
     `dev`, with their mask."""
@@ -444,7 +576,17 @@ class RegistrationNode:
     columns are skipped), both from the GT pose plus seeded noise. Their
     draws come from two `np.random.RandomState(42)` per scene and, for the
     KITTI frame, the global `np.random`, in the reference's order.
-    `map_sharding` (A15b) raises. Runs on `device` (default: the card)."""
+
+    Several devices (reference `:263-320`): when a `torch.distributed`
+    process group of world size > 1 is initialised (`torchrun`; the CLI
+    initialises it), every rank runs the same scene loop, the batched row's
+    stages run over the ranks (`precompute_scene_batched(mesh=...)`) and the
+    serial RANSAC columns split their hypotheses over them
+    (`parallel.mesh.sharded_ransac`); with `map_sharding` the batched row
+    splits the map's rows instead and the serial columns stay on each
+    rank's device. At world size 1 both keep the single-device path, as the
+    reference's do. Rank 0 alone prints, writes the error pickle and the
+    `dump_viz_dir` files. Runs on `device` (default: the card)."""
 
     # Manual RobotCar GT improvements (`registration_node.py:597-623`).
     _ROBOTCAR_GT_FIX = {
@@ -473,9 +615,6 @@ class RegistrationNode:
         dump_viz_dir: Optional[Path] = None,
         device=None,
     ) -> None:
-        if map_sharding:
-            raise _not_ported("map_sharding (with parallel/mesh.py's multi-device paths and "
-                              "utils/profiling.py)", "A15b")
         if scan_to_scan not in (None, "data", "kitti"):
             raise ValueError(f"scan_to_scan must be None, 'data' or 'kitti', got {scan_to_scan!r}")
         self.device = resolve_device(device)
@@ -535,11 +674,36 @@ class RegistrationNode:
         self.methods_teaser = available(methods_teaser if methods_teaser is not None else DEFAULT_TEASER)
         self.methods_pointdsc = available(methods_pointdsc if methods_pointdsc is not None else DEFAULT_POINTDSC)
 
+        # Several devices: the scan-sharded or the map-sharded batched row,
+        # and the serial columns' hypothesis-sharded RANSAC (`:263-320`).
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        self._rank = dist.get_rank() if world > 1 else 0
+        self.mesh = None
+        self._map_sharded = False
+        self._sharded_ransac = None
         self.config = load_config(None, deskew=False, max_range=None)
-        print("Sigma:", self.config.adaptive_threshold.initial_threshold)
-        print("Voxel size:", self.config.mapping.voxel_size)
-        print("Max points per voxel:", self.config.mapping.max_points_per_voxel)
-        print("=" * 80)
+        with self._rank0_stdout():
+            if world > 1:
+                self._map_sharded = map_sharding
+                self.mesh = make_mesh(("model",) if map_sharding else ("data",))
+                if map_sharding:
+                    print(f"Mesh: sharding the MAP over {world} devices (bigger-than-HBM scene mode)")
+                else:
+                    self._sharded_ransac = sharded_ransac(self.mesh, num_hypotheses=RANSAC_HYPOTHESES)
+                    print(f"Mesh: sharding driver stages over {world} devices")
+            print("Sigma:", self.config.adaptive_threshold.initial_threshold)
+            print("Voxel size:", self.config.mapping.voxel_size)
+            print("Max points per voxel:", self.config.mapping.max_points_per_voxel)
+            print("=" * 80)
+
+    @contextlib.contextmanager
+    def _rank0_stdout(self):
+        """Standard output as it is on rank 0, discarded on the other ranks."""
+        if self._rank == 0:
+            yield
+            return
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            yield
 
     def _tic(self, stage: str) -> None:
         """Add the seconds since the last mark to `stage_seconds[stage]`
@@ -673,10 +837,13 @@ class RegistrationNode:
             keep = snap_mask.cpu().numpy()
             self._viz_corr = (snapped_src.cpu().numpy()[keep], snapped_tgt.cpu().numpy()[keep])
 
-        generator = torch.Generator(device=dev).manual_seed(self.scan_idx)
-        res = ransac_registration(snapped_src, snapped_tgt, snap_mask, generator,
-                                  num_hypotheses=RANSAC_HYPOTHESES)
-        ransac_pose = res.pose.cpu().numpy().astype(np.float64)
+        if self._sharded_ransac is not None:
+            pose_dev, _ = self._sharded_ransac(snapped_src, snapped_tgt, snap_mask, self.scan_idx)
+        else:
+            generator = torch.Generator(device=dev).manual_seed(self.scan_idx)
+            pose_dev = ransac_registration(snapped_src, snapped_tgt, snap_mask, generator,
+                                           num_hypotheses=RANSAC_HYPOTHESES).pose
+        ransac_pose = pose_dev.cpu().numpy().astype(np.float64)
         self._tic(f"{stage}_solve")
         if run_icp:
             pose = self._refine(voxel_scan, voxel_hash_map, ransac_pose)
@@ -964,11 +1131,11 @@ class RegistrationNode:
         """The scene's GT ICP, vfm RANSAC + refine and vanilla rows as the
         batched method row, on the GT-fixed poses and the map's own grid."""
         poses = [self._gt_fixed_pose(p) for p in scene["scene_poses"]]
-        grid = self._map_hash(scene_local_map, with_descriptors=True).device_grid()
+        grid = None if self._map_sharded else self._map_hash(scene_local_map, with_descriptors=True).device_grid()
         res = precompute_scene_batched(
             {"scene_poses": poses, "scene_point_clouds": scene["scene_point_clouds"]},
             scene_local_map, device=self.device, q5_budget=self._q5_budget, grid=grid,
-            viz=self.dump_viz_dir is not None,
+            viz=self.dump_viz_dir is not None, mesh=self.mesh, map_sharded=self._map_sharded,
         )
         self.batched_stats = res["stats"]
         return res
@@ -980,7 +1147,8 @@ class RegistrationNode:
             self.stop_publishing = True
             return
         name = self.filenames[self.scene_idx]
-        print(f"Current scene ID: {self.scene_idx} | {name.name}")
+        with self._rank0_stdout():
+            print(f"Current scene ID: {self.scene_idx} | {name.name}")
         scene = self._read_scene(self.scene_idx)
         self._prefetch_scene(self.scene_idx + 1)
         self.run_scene(scene, name)
@@ -998,7 +1166,8 @@ class RegistrationNode:
         self.stage_seconds, self.batched_stats = {}, None
         self._clock = time.perf_counter()
         try:
-            self._run_scene(scene, label, n_scenes)
+            with self._rank0_stdout():
+                self._run_scene(scene, label, n_scenes)
         finally:
             self._clock = None
 
@@ -1165,6 +1334,8 @@ class RegistrationNode:
         is), and the accepted correspondences as segment pairs."""
         from vfmreg_tpu_torch.pipeline.visualize_scenes import write_ply, write_ply_segments
 
+        if self._rank != 0:
+            return
         out = self.dump_viz_dir / f"scene_{self.scene_idx:03d}"
         out.mkdir(parents=True, exist_ok=True)
         if scan_idx == 0:
@@ -1237,7 +1408,9 @@ class RegistrationNode:
         print("=" * 80)
 
     def dump_errors(self, error_file: Path):
-        """The pickle of `registration_node.py:1092-1100`."""
+        """The pickle of `registration_node.py:1092-1100` (rank 0 writes it)."""
+        if self._rank != 0:
+            return
         error_file = Path(error_file)
         error_file.parent.mkdir(exist_ok=True, parents=True)
         with open(error_file, "wb") as f:
@@ -1258,7 +1431,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     `--dump-viz DIR` the per-scan PLY files under DIR.
     `--cluster-removal-sweep` runs the folder once per mode of SWEEP_MODES,
     in that order, with one `ImageFeatureGenerator` (its PCA fit, made on the
-    first map, colours every later map) and writes `mode_<NNN>.pkl` each."""
+    first map, colours every later map) and writes `mode_<NNN>.pkl` each.
+    Launched by `torchrun --nproc_per_node N` (WORLD_SIZE > 1), every rank
+    joins one process group, NCCL with one card a rank (LOCAL_RANK), or
+    gloo with `--device cpu`, and the node runs its multi-device modes."""
     def signal_handler(sig, frame):
         print("Manual termination triggered")
         sys.exit(0)
@@ -1274,6 +1450,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     signal.signal(signal.SIGINT, signal_handler)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("gloo" if cpu else "nccl")
 
     datetime_now = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     cluster_removal_probs = SWEEP_MODES if args.cluster_removal_sweep else [(None, 0)]

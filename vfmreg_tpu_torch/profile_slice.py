@@ -20,7 +20,8 @@ It warms up once, then prints JSON lines:
 
 * `stages`: host-clock seconds of each stage with a synchronize after it,
   summed over `--reps` runs (slice: grid build, 5 m voxelize, matching, each
-  lane's VFM-ICP; driver: the row's own stage clock, with the GN iterations
+  lane's VFM-ICP; driver: the row's own stage clock under
+  VFMREG_PROFILE_DRIVER=1, with the GN iterations
   of each ICP row and, per ICP row, its loop's kernel B2 step calls, device
   reads, kernel B3 launches and per-lane iterations and rebuilds; with
   `--steps-per-read 1,4,16` one such line per value of
@@ -47,6 +48,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import tempfile
 import time
 
@@ -109,11 +111,26 @@ def _driver(reps, dev, steps_per_read):
         finally:
             icp.GN_STEPS_PER_READ = kept
 
+    def run_by_stage(k):
+        """`run` under VFMREG_PROFILE_DRIVER=1: a synchronize after every
+        stage and its seconds in the stats (the row's printed breakdown goes
+        to a buffer)."""
+        kept = os.environ.get("VFMREG_PROFILE_DRIVER")
+        os.environ["VFMREG_PROFILE_DRIVER"] = "1"
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return run(k)
+        finally:
+            if kept is None:
+                del os.environ["VFMREG_PROFILE_DRIVER"]
+            else:
+                os.environ["VFMREG_PROFILE_DRIVER"] = kept
+
     run()  # warm-up
     out = {k: {"stages": {}, "gn_iterations": {}} for k in steps_per_read}
     for _ in range(reps):
         for k in steps_per_read:
-            st = run(k)["stats"]
+            st = run_by_stage(k)["stats"]
             acc = out[k]
             for key, v in st["seconds"].items():
                 acc["stages"][key] = acc["stages"].get(key, 0.0) + v

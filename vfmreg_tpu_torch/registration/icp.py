@@ -239,6 +239,7 @@ def geometric_icp_loop_lanes(
     it0: Union[int, Sequence[int]],
     refresh_interval: int = REFRESH_INTERVAL,
     qfeats: Optional[torch.Tensor] = None,
+    merge_cache=None,
 ) -> ICPLanes:
     """The reference's three nested loops with their three rules, for B
     lanes at once (source0 [B, N, 3], mask [B, N], T_icp0 [B, 4, 4],
@@ -263,7 +264,21 @@ def geometric_icp_loop_lanes(
     With `qfeats` [B, N, D] (D the grid's descriptor dim) the champions are
     the XD path's weighted ones: per gather the lane's slabs and their
     weights, per rebuild `build_weighted_nn_cache`, per step
-    `_gn_step_lanes_weighted`, lane by lane in plain PyTorch."""
+    `_gn_step_lanes_weighted`, lane by lane in plain PyTorch.
+
+    `merge_cache` is the hook of map-sharded registration
+    (`parallel.mesh.CacheMerge`, the reference's at `icp.py:287-292`): each
+    rank's grid holds one shard of the map rows, every B3 round's champions
+    [3, B, 32, N] are gathered over the ranks into [3, B, 32 x world, N]
+    (rank 0's first, so B2's lowest-k tie rule gives the lowest rank), and
+    the GN steps read the merged cache. The union holds the global nearest
+    neighbour, so a step right after a rebuild is exact. Each round's lane
+    phases go through `merge_cache.agree` (MAX over the ranks) before the
+    host acts on them, so every rank gathers, rebuilds and stops the same
+    lanes in the same rounds and the ranks' collectives stay paired. The XD
+    path refuses it, as the reference does."""
+    if qfeats is not None and merge_cache is not None:
+        raise ValueError("merge_cache is not supported on the XD weighted path")
     dev = source0.device
     b, n = source0.shape[:2]
     f32 = torch.float32
@@ -293,6 +308,7 @@ def geometric_icp_loop_lanes(
     # Every round advances every unfinished lane by at least one step.
     max_rounds = int(max_iterations - np.min(it0))
     ints = None
+    step_champs = champs  # what the GN steps read: the merged cache under `merge_cache`
     while not (phase == FINISHED).all():
         if loop["reads"] >= max_rounds:
             raise RuntimeError(f"ICP lanes made no progress in {max_rounds} rounds: phases {phase.tolist()}")
@@ -321,6 +337,8 @@ def geometric_icp_loop_lanes(
             else:
                 champions_from_planes_lanes(planes[0], planes[1], planes[2], source, mask, flags, group,
                                             champs)
+                if merge_cache is not None:
+                    step_champs = merge_cache(champs)
             mark_rebuilt(st, flags)
             loop["rebuild_rounds"] += 1
             loop["lane_rebuilds"] += rebuild.size
@@ -329,12 +347,14 @@ def geometric_icp_loop_lanes(
                 _gn_step_lanes_weighted(champs, source, mask, center, kernel, max_dist,
                                         estimation_threshold, refresh_interval, st)
             else:
-                gn_step_lanes(champs[0], champs[1], champs[2], source, center, kernel, max_dist,
-                              estimation_threshold, refresh_interval, st)
+                gn_step_lanes(step_champs[0], step_champs[1], step_champs[2], source, center, kernel,
+                              max_dist, estimation_threshold, refresh_interval, st)
         loop["step_calls"] += GN_STEPS_PER_READ
         ints = st.ints.cpu().numpy()
         loop["reads"] += 1
         phase = ints[:, PHASE]
+        if merge_cache is not None:
+            phase = merge_cache.agree(phase)
     if ints is None:  # every lane started finished
         ints = st.ints.cpu().numpy()
         loop["reads"] += 1
@@ -369,13 +389,14 @@ def geometric_icp_loop(
     estimation_threshold: float,
     it0: int,
     refresh_interval: int = REFRESH_INTERVAL,
+    merge_cache=None,
 ) -> ICPState:
     """`geometric_icp_loop_lanes` for one lane: source0 [N, 3], mask [N],
     T_icp0 a host f32 [4, 4], center an f32 [3]."""
     r = geometric_icp_loop_lanes(
         grid, source0[None], mask[None], torch.as_tensor(T_icp0)[None],
         torch.as_tensor(center)[None], max_dist, kernel, max_iterations, estimation_threshold,
-        it0, refresh_interval,
+        it0, refresh_interval, merge_cache=merge_cache,
     )
     return ICPState(r.source[0], r.T_icp[0], int(r.it[0]), bool(r.done[0]), bool(r.confirmed[0]),
                     int(r.rebuilds[0]), r.loop)
@@ -406,6 +427,8 @@ def register_frames_icp_stats(
     kernel: float,
     max_iterations: int = MAX_NUM_ITERATIONS,
     qfeats: Optional[torch.Tensor] = None,
+    refresh_interval: int = REFRESH_INTERVAL,
+    merge_cache=None,
 ) -> BatchedICP:
     """KISS-ICP `RegisterFrame` for 3D points (`Registration.cpp:145-195`)
     for B lanes at once (points [B, N, 3], mask [B, N], initial_guesses
@@ -420,7 +443,8 @@ def register_frames_icp_stats(
     rounds otherwise on the card as the row's width changes, and a lane
     must give what its own one-lane run gives (the driver's serial and
     batched rows are held equal). Padding rows stay zero; no step reads them.
-    With `qfeats` [B, N, D] the lanes take the XD path's weighted champions
+    With `qfeats` [B, N, D] the lanes take the XD path's weighted champions,
+    and with `merge_cache` a map-sharded grid's merged champions
     (`geometric_icp_loop_lanes`)."""
     points = points.to(torch.float32)
     b = points.shape[0]
@@ -435,7 +459,8 @@ def register_frames_icp_stats(
     eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
     r = geometric_icp_loop_lanes(
         grid, source0, mask, eye, center, max_correspondence_distance, kernel, max_iterations,
-        ESTIMATION_THRESHOLD, it0=0, qfeats=qfeats,
+        ESTIMATION_THRESHOLD, it0=0, refresh_interval=refresh_interval, qfeats=qfeats,
+        merge_cache=merge_cache,
     )
     poses = torch.stack([r.T_icp[j] @ guesses[j] for j in range(b)])
     return BatchedICP(poses, r.it, r.done | r.confirmed, r.rebuilds, r.loop)
@@ -449,12 +474,14 @@ def register_frame_icp(
     max_correspondence_distance: float,
     kernel: float,
     max_iterations: int = MAX_NUM_ITERATIONS,
+    refresh_interval: int = REFRESH_INTERVAL,
+    merge_cache=None,
 ) -> torch.Tensor:
     """KISS-ICP `RegisterFrame` for one scan's 3D points (reference
     `register_frame_icp`, `vfmreg_tpu/registration/icp.py:443`): the pose
     [4, 4] (host f32) of `register_frame_icp_stats`."""
     return register_frame_icp_stats(grid, points, mask, initial_guess, max_correspondence_distance,
-                                    kernel, max_iterations).pose
+                                    kernel, max_iterations, refresh_interval, merge_cache).pose
 
 
 def register_frame_icp_stats(
@@ -465,12 +492,15 @@ def register_frame_icp_stats(
     max_correspondence_distance: float,
     kernel: float,
     max_iterations: int = MAX_NUM_ITERATIONS,
+    refresh_interval: int = REFRESH_INTERVAL,
+    merge_cache=None,
 ) -> ICPStats:
     """`register_frames_icp_stats` for one lane: points [N, 3], mask [N],
     initial_guess [4, 4]."""
     guess = torch.as_tensor(initial_guess).to("cpu", torch.float32)
     r = register_frames_icp_stats(grid, points[None], mask[None], guess[None],
-                                  max_correspondence_distance, kernel, max_iterations)
+                                  max_correspondence_distance, kernel, max_iterations,
+                                  refresh_interval=refresh_interval, merge_cache=merge_cache)
     return ICPStats(r.poses[0], int(r.iterations[0]), bool(r.settled[0]), int(r.rebuilds[0]), r.loop)
 
 

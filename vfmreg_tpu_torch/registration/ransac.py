@@ -1,7 +1,8 @@
 """RANSAC on correspondences, scored from sufficient statistics, and the snap filter.
 
 Counterpart of `vfmreg_tpu/registration/ransac.py`: `ransac_registration`
-(`:44`) and `snap_correspondences` (`:147`).
+(`:44`) and `snap_correspondences` (`:147`, with the map-sharded target side
+of `vfmreg_tpu/parallel/mesh.py:703-733`).
 
 RANSAC replaces Open3D's correspondence RANSAC as the reference driver calls
 it (ransac_n = 3, every correspondence an inlier, 50,000 iterations, no early
@@ -39,6 +40,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from vfmreg_tpu_torch.ops.matching import _chunked_argmin_l2, _sq3
+from vfmreg_tpu_torch.parallel import collectives
 from vfmreg_tpu_torch.registration.procrustes import dot3, kabsch_horn, matvec3
 
 _BLOCK = 1024  # the reference's hypothesis block, which fixes its padding
@@ -180,6 +182,7 @@ def snap_correspondences(
     scan_mask: torch.Tensor,  # [..., S]
     map_points: torch.Tensor,  # [M, 3], shared
     map_mask: torch.Tensor,  # [M]
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Replace each correspondence by its nearest point in the voxelized scan
     and map clouds, and drop it when either moved by SNAP_TOLERANCE or more
@@ -193,7 +196,14 @@ def snap_correspondences(
     Each set's shift is the mean of its own valid rows, summed set by set:
     a sum over a padded or batched row rounds otherwise on the card, and the
     shift's bits decide near-ties of the search, so a scan snaps the same
-    alone or in a batch."""
+    alone or in a batch.
+
+    With `group` (a `torch.distributed` group), `map_points` / `map_mask`
+    are this rank's rows of the map: the target side searches them, then
+    every rank's squared distances and snapped points are gathered and the
+    first minimum over the ranks wins (the lowest rank on ties), as the
+    reference's map-sharded snap (`parallel/mesh.py:703-733`). The scan side
+    is the same on every rank."""
     lead = mask.shape[:-1]
     flat_src, flat_mask = src.reshape(-1, *src.shape[-2:]), mask.reshape(-1, mask.shape[-1])
     c = torch.zeros((flat_src.shape[0], 3), dtype=src.dtype, device=src.device)
@@ -202,9 +212,15 @@ def snap_correspondences(
         c[j] = valid.sum(dim=0) / max(valid.shape[0], 1)
     cc = c.reshape(*lead, 1, 3)
     _, idx_s = _chunked_argmin_l2(src - cc, scan_points - cc, scan_mask, _SNAP_CHUNK)
-    _, idx_t = _chunked_argmin_l2(tgt - cc, map_points - cc, map_mask, _SNAP_CHUNK)
+    d2_t, idx_t = _chunked_argmin_l2(tgt - cc, map_points - cc, map_mask, _SNAP_CHUNK)
     snapped_src = torch.gather(scan_points, -2, idx_s[..., None].expand(idx_s.shape + (3,)))
     snapped_tgt = map_points[idx_t]
+    if group is not None:
+        d2g = collectives.all_gather(d2_t[None], group)  # [world, ..., C]
+        tgg = collectives.all_gather(snapped_tgt[None], group)
+        iota = torch.arange(d2g.shape[0], device=d2g.device).reshape((-1,) + (1,) * d2_t.ndim)
+        rank = torch.amin(torch.where(d2g == torch.amin(d2g, dim=0), iota, d2g.shape[0]), dim=0)
+        snapped_tgt = torch.gather(tgg, 0, rank[None, ..., None].expand((1,) + snapped_tgt.shape))[0]
     d_s = torch.sqrt(_sq3(src - snapped_src))
     d_t = torch.sqrt(_sq3(tgt - snapped_tgt))
     ok = mask & (d_s < SNAP_TOLERANCE) & (d_t < SNAP_TOLERANCE)

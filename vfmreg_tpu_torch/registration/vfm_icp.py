@@ -59,10 +59,13 @@ def register_frame_vfm(
     max_correspondence_distance: float,
     kernel: float,
     max_iterations: int = MAX_NUM_ITERATIONS,
+    merge_cache=None,
 ) -> VFMResult:
     """Run the VFM and geometric ICP loops for one scan, given its
     correspondences (computed from the guess-transformed source).
-    Tensors live on the grid's device; `initial_guess` may be anywhere."""
+    Tensors live on the grid's device; `initial_guess` may be anywhere.
+    `merge_cache` goes to phase 2's loop (map-sharded registration,
+    `registration.icp.geometric_icp_loop_lanes`); phase 1 reads no map."""
     points = points.to(torch.float32)
     initial_guess = initial_guess.to("cpu", torch.float32)
     source0 = transform_points(points, initial_guess)
@@ -103,6 +106,7 @@ def register_frame_vfm(
     s2 = geometric_icp_loop(
         grid, source, mask, T_vfm, center,
         max_correspondence_distance, kernel, max_iterations, ESTIMATION_THRESHOLD, it0=it,
+        merge_cache=merge_cache,
     )
     # The reference moves the returned correspondence sources along with
     # phase 2 (`Registration.cpp:365`).
