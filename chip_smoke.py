@@ -12,8 +12,8 @@ lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
 at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
-one-lane entries), and drives thirteen paths. The first six run B1-B3, the
-odometry B2 and B3, the descriptor passes and featup B5:
+one-lane entries), and drives fourteen paths. The first six run B1-B3, the
+odometry B2 and B3, the descriptor passes, featup and train B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
@@ -136,7 +136,24 @@ odometry B2 and B3, the descriptor passes and featup B5:
   heads, context 77; random seeded weights) on the MaskCLIP generator:
   five prompts encoded and held within TEXT_ATOL of the CPU evaluation,
   and `compute_similarity` of the first cloud's MaskCLIP descriptors
-  against one, finite, within [-1, 1] and 0 on zero rows.
+  against one, finite, within [-1, 1] and 0 on zero rows;
+* train: the trainer (`train.trainer`) fine-tuning ViT-S/14 at full width
+  (plain attention, random seeded weights) and its adapter 384 -> 512 ->
+  128 with the default TrainConfig (AdamW, lr 1e-4, decay 0.05, T 0.07),
+  dp x tp on a (1, 1) ("data", "model") mesh through NCCL (one rank over a
+  FileStore, so every collective of the split step runs): 8 pairs of
+  224 x 280 views (T = 321; view b = view a + noise), 256 corresponding
+  patches a pair ([2,048 x 2,048] logits), seed 0. Step 1 against the
+  port's CPU step (loss, accuracy, every gradient leaf) and against the
+  same step with `mesh=None` (bit for bit); 20 timed steps (steps/s,
+  images/s, median / p90, peak memory), the loss finite and descending;
+  a checkpoint after step 10 restored into a fresh state, its next step
+  bit for bit; 5 steps with the stage clock and their collectives; a step
+  with `use_flash_attention=True` refused with B5's "no backward" error
+  (no B5 launch in any step); then B5 at the trainer's [16, 321, 6, 64]
+  (block 0 of the trained ViT) and the trained ViT's forward under
+  `no_grad` with B5, its patch descriptors within cosine 0.9999 of plain
+  attention's.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path was launched as often as
@@ -144,7 +161,8 @@ the path's own counts say: B1 at least once (in the node, once per serial
 correspondence search besides), B2 once per step call of the ICP loops
 (each call steps every live lane of a row; in the node and the odometry,
 summed over every ICP loop the path ran, `registration.icp.recording_loops`),
-B3 once per rebuild round, B5 12 times per image (11 with MaskCLIP);
+B3 once per rebuild round, B5 12 times per image (11 with MaskCLIP; 12
+per forward of the train path's batch of 16, none in its steps);
 odometry_xd launches none. Per ICP row it prints the loop's step calls,
 reads and rebuild rounds beside the lanes' iterations and rebuilds, and
 checks them against each other (`loop_check`). No path launches B4 (the ICP
@@ -175,7 +193,8 @@ each reader, odometry_readers_equal, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
 [2, 200, 4, 32] and at T = 320, descriptor, kernel_check for B5 at the
 MaskCLIP pass's q, k, v [1, 321, 12, 64], descriptor_maskclip, featup,
-clip_text, script: the whole run's seconds), then
+clip_text, kernel_check for B5 at the trainer's [16, 321, 6, 64], train,
+script: the whole run's seconds), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
 under "paths"), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check raises and the script
@@ -306,6 +325,23 @@ EXP_TREE_COLORS = ((217, 60, 165), (118, 105, 57))
 # node_sharded phase: the node at NODE_SHARDED_SCANS scans with and without
 # map_sharding; B2 at the merged widths of MERGED_WORLDS ranks (K = 32 x world).
 NODE_SHARDED_SCANS, MERGED_WORLDS = 2, (2, 4)
+# train phase: the trainer (`train/trainer.py`) at ViT-S/14 full width with
+# plain attention and the default TrainConfig, on a ("data", "model") mesh of
+# (1, 1) over NCCL: TRAIN_PAIRS pairs of TRAIN_HW views (the descriptor
+# pass's ViT input: T = 321), view b = view a + 0.05 noise (as
+# tests/test_trainer.py), TRAIN_K corresponding patches a pair, seed 0. One
+# warm-up step (step 1), TRAIN_STEPS timed steps, a checkpoint after step
+# TRAIN_CKPT_STEP, TRAIN_CLOCK_STEPS more with the stage clock. Step 1 on the card
+# against the port's CPU step from the same parameters on the same batch:
+# the loss within a relative TRAIN_LOSS_RTOL, the accuracy within
+# TRAIN_ACC_ATOL (two of the 2,048 rows' argmax at a near-tie), each
+# gradient leaf within TRAIN_GRAD_RTOL of its own largest entry; the k
+# biases, whose exact gradient is zero (the softmax ignores a constant added
+# to every key), below TRAIN_ZERO_GRAD_RTOL of the largest gradient entry on
+# both sides (tests/test_torch_trainer.py's rules, at 12 layers).
+TRAIN_PAIRS, TRAIN_HW, TRAIN_K, TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_CLOCK_STEPS = 8, (224, 280), 256, 20, 10, 5
+TRAIN_LOSS_RTOL, TRAIN_ACC_ATOL = 1e-5, 2 / (8 * 256)
+TRAIN_GRAD_RTOL, TRAIN_ZERO_GRAD_RTOL = 1e-4, 1e-6
 # B4 is checked at each path's champion cache and at two shapes its design
 # handles apart: the slice cache's first NN_RAGGED_N columns (n not a
 # multiple of 4, so no row starts 16-byte aligned and every tile is read by
@@ -1213,6 +1249,249 @@ def drive_clip_text(dev, gen, descriptors):
           "zero_rows": int(zero.sum()), "zero_rows_zero": zeros_ok})
     if not ok:
         raise RuntimeError(f"clip_text phase failed: err={err}, finite {finite}, range {in_range}, zeros {zeros_ok}")
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """{"collections": [per generation], "seconds": [per generation]}: the
+    host's garbage-collector passes in the block and their time."""
+    import gc
+
+    out = {"collections": [0, 0, 0], "seconds": [0.0, 0.0, 0.0]}
+    started = []
+
+    def clock(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            out["collections"][info["generation"]] += 1
+            out["seconds"][info["generation"]] += time.perf_counter() - started.pop()
+
+    gc.callbacks.append(clock)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(clock)
+
+
+def drive_train(dev, peaks, rows):
+    """The train phase: the trainer's dp x tp step at world size 1 through
+    NCCL (a one-rank group over a FileStore, a (1, 1) ("data", "model")
+    mesh, so every collective of the split step runs), at ViT-S/14 full
+    width with plain attention and the adapter 384 -> 512 -> 128.
+
+    * step 1 (the warm-up) against the port's CPU step from the same
+      parameters on the same batch, and against the same step with
+      `mesh=None` on the card, bit for bit;
+    * TRAIN_STEPS timed steps (a synchronize after each): steps/s, images/s,
+      median / p90 step seconds, peak memory; the loss finite at every step
+      and lower after them than at step 1;
+    * a checkpoint after step TRAIN_CKPT_STEP restored into a fresh state,
+      whose next step equals the uninterrupted step bit for bit (loss,
+      parameters, moments);
+    * TRAIN_CLOCK_STEPS steps with the stage clock (forward, backward,
+      gradient all-reduce, optimizer; a synchronize after each) and their
+      collectives recorded; the host's garbage-collector pauses in the
+      timed steps;
+    * `make_train_step` with `use_flash_attention=True` raises B5's "no
+      backward" error, and the steps launch B5 0 times;
+    * B5 at the trainer's shape [16, 321, 6, 64] (block 0 of the trained
+      ViT on both views), then the trained ViT's forward under `no_grad`
+      with B5 (`models.vit.ViT` loaded from the gathered state): 12
+      launches, patch descriptors within cosine DESC_COS of the plain
+      attention's. Returns the forward's launches."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vfmreg_tpu_torch.models.vit import PRESETS, ViT
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.parallel import collectives
+    from vfmreg_tpu_torch.parallel.mesh import make_mesh
+    from vfmreg_tpu_torch.train import trainer as T
+    from vfmreg_tpu_torch.utils.profiling import Timer
+
+    t_phase = time.perf_counter()
+    vit_cfg = dataclasses.replace(PRESETS[VIT_PRESET], use_flash_attention=False)
+    flash_cfg = dataclasses.replace(vit_cfg, use_flash_attention=True)
+    tcfg = T.TrainConfig()
+    rng = np.random.RandomState(SEED)
+    h, w = TRAIN_HW
+    ia = rng.normal(size=(TRAIN_PAIRS, h, w, 3)).astype(np.float32)
+    ib = ia + 0.05 * rng.normal(size=ia.shape).astype(np.float32)
+    patches = (h // vit_cfg.patch_size) * (w // vit_cfg.patch_size)
+    idx = rng.randint(0, patches, (TRAIN_PAIRS, TRAIN_K)).astype(np.int32)
+    batch = [torch.from_numpy(x).to(dev) for x in (ia, ib, idx)]
+
+    def new_state(mesh, seed=SEED, cfg=vit_cfg, device=dev):
+        return T.create_train_state(torch.Generator().manual_seed(seed), cfg, mesh, tcfg, device)[0]
+
+    def snapshot(state, m):
+        named = dict(state.model.named_parameters())
+        return {"loss": m["loss"].clone(), "accuracy": m["accuracy"].clone(),
+                "grads": {n: p.grad.detach().clone() for n, p in named.items()},
+                "params": {n: p.detach().clone() for n, p in named.items()},
+                "exp_avg_sq": {n: state.optimizer.state[p]["exp_avg_sq"].clone() for n, p in named.items()}}
+
+    def differs(a, b):
+        """The snapshot entries (`key` or `key:name`) that are not equal bit for bit."""
+        out = [k for k in ("loss", "accuracy") if not torch.equal(a[k], b[k])]
+        return out + [f"{key}:{n}" for key in ("grads", "params", "exp_avg_sq") for n in a[key]
+                      if not torch.equal(a[key][n], b[key][n])]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, world_size=1, rank=0, timeout=datetime.timedelta(seconds=120),
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            backend = dist.get_backend()
+            mesh = make_mesh(("data", "model"), (1, 1))
+            step = T.make_train_step(vit_cfg, mesh, tcfg)
+            state = new_state(mesh)
+            n_params = sum(p.numel() for p in state.model.parameters())
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, *batch)
+            torch.cuda.synchronize()
+            warmup_seconds = time.perf_counter() - t0
+            first = snapshot(state, m)
+            losses, times = [float(m["loss"])], []
+            with gc_pauses() as pauses:
+                for _ in range(TRAIN_STEPS):
+                    t0 = time.perf_counter()
+                    state, m = step(state, *batch)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(float(m["loss"]))
+                    if state.step == TRAIN_CKPT_STEP:
+                        ckpt = T.save_checkpoint(os.path.join(tmp, "ckpt"), state)
+                    if state.step == TRAIN_CKPT_STEP + 1:
+                        after_ckpt = snapshot(state, m)
+            peak = torch.cuda.max_memory_allocated()
+            clocks = []
+            with collectives.recording() as log:
+                for _ in range(TRAIN_CLOCK_STEPS):
+                    timer = Timer()
+                    state, m = step(state, *batch, timer=timer)
+                    clocks.append(timer.totals)
+                torch.cuda.synchronize()
+            coll = collectives.collective_ms(log)
+            coll_by_op = dict(collections.Counter(r["op"] for r in log))
+            stage_ms = {k: [1e3 * c[k] for c in clocks] for k in clocks[0]}
+            full = T.full_state(state)["params"]
+
+            fresh = T.restore_checkpoint(ckpt, new_state(mesh, seed=SEED + 1))
+            resumed_from = fresh.step
+            fresh, m = step(fresh, *batch)
+            resume_diff = differs(snapshot(fresh, m), after_ckpt)
+            resume_equal = resumed_from == TRAIN_CKPT_STEP and not resume_diff
+            del fresh
+        finally:
+            dist.destroy_process_group()
+
+    single = new_state(None)
+    single, m = T.make_train_step(vit_cfg, None, tcfg)(single, *batch)
+    mesh_diff = differs(snapshot(single, m), first)
+    mesh_equal = not mesh_diff
+    del single
+
+    raised = ""
+    flash_state = new_state(None, cfg=flash_cfg)
+    try:
+        T.make_train_step(flash_cfg, None, tcfg)(flash_state, *batch)
+    except ValueError as e:
+        raised = str(e)
+    flash_refused = "no backward" in raised and flash_state.step == 0
+    # Every training step above, the refused one included (launch counts are
+    # reset before step 1 only).
+    b5_in_steps = _build.LAUNCHES.get("flash_attention", 0)
+    del flash_state
+    torch.cuda.empty_cache()
+
+    # Step 1 on the CPU from the same parameters on the same batch.
+    t0 = time.perf_counter()
+    cpu = new_state(None, device="cpu")
+    cpu, cm = T.make_train_step(vit_cfg, None, tcfg)(cpu, ia, ib, idx)
+    cpu_seconds = time.perf_counter() - t0
+    cpu_grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    top = max(float(g.abs().max()) for g in cpu_grads.values())
+    grad_rel, zero_grad = {}, 0.0
+    for n, g in cpu_grads.items():
+        card = first["grads"][n].cpu()
+        if n.endswith("attn.k.bias"):
+            zero_grad = max(zero_grad, float(card.abs().max()) / top, float(g.abs().max()) / top)
+        else:
+            grad_rel[n] = float((card - g).abs().max()) / float(g.abs().max())
+    loss_rel = abs(float(first["loss"]) - float(cm["loss"])) / float(cm["loss"])
+    acc_diff = abs(float(first["accuracy"]) - float(cm["accuracy"]))
+    worst = max(grad_rel, key=grad_rel.get)
+    cpu_ok = (loss_rel <= TRAIN_LOSS_RTOL and acc_diff <= TRAIN_ACC_ATOL
+              and grad_rel[worst] <= TRAIN_GRAD_RTOL and zero_grad <= TRAIN_ZERO_GRAD_RTOL)
+    del cpu, cpu_grads
+
+    # B5 at the trainer's shape, on the trained weights.
+    images = torch.cat(batch[:2])
+    vit_sd = {k[len("vit."):]: v for k, v in full.items() if k.startswith("vit.")}
+    models = {}
+    for name, cfg in (("flash", flash_cfg), ("plain", vit_cfg)):
+        models[name] = ViT(cfg)
+        models[name].load_state_dict(vit_sd)
+        models[name].to(dev).eval()
+    with torch.no_grad():
+        blk = models["flash"].blocks[0]
+        q, k, v = blk.attn.qkv(blk.norm1(models["flash"].tokens(images)))
+    rows["flash_attention"] = check_flash("train", q, k, v, peaks)
+    del q, k, v
+    _build.reset_launches()
+    with torch.no_grad():
+        out_flash = models["flash"](images)["patches"]
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        out_plain = models["plain"](images)["patches"]
+    a = out_flash.reshape(-1, out_flash.shape[-1]).double()
+    b = out_plain.reshape(-1, out_plain.shape[-1]).double()
+    cos_min = float(((a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1)).clamp_min(1e-300)).min())
+    forward_ok = launches.get("flash_attention", 0) == VIT_LAYERS and cos_min >= DESC_COS
+
+    steps_per_s = len(times) / sum(times)
+    finite = bool(np.all(np.isfinite(losses)))
+    descends = losses[-1] < losses[0]
+    ok = (finite and descends and cpu_ok and mesh_equal and resume_equal and flash_refused and b5_in_steps == 0
+          and forward_ok and coll["calls"] > 0)
+    emit({"phase": "train", "ok": ok, "backend": backend, "world_size": 1, "mesh": {"data": 1, "model": 1},
+          "vit": VIT_PRESET, "parameters": n_params, "train_config": dataclasses.asdict(tcfg),
+          "pairs": TRAIN_PAIRS, "image": [h, w, 3], "tokens": patches + 1, "k": TRAIN_K,
+          "logits": [TRAIN_PAIRS * TRAIN_K] * 2, "warmup_seconds": warmup_seconds, "steps": len(times),
+          "steps_per_s": steps_per_s, "images_per_s": 2 * TRAIN_PAIRS * steps_per_s,
+          "step_seconds_median": float(np.median(times)), "step_seconds_p90": float(np.percentile(times, 90)),
+          "step_seconds": times, "peak_memory_bytes": peak, "losses": losses, "loss_finite": finite,
+          "loss_descends": descends, "gc_pauses_in_timed_steps": pauses,
+          "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()}, "stage_ms": stage_ms,
+          "collective_calls_per_step": coll["calls"] / TRAIN_CLOCK_STEPS,
+          "collective_ms_per_step": coll["ms"] / TRAIN_CLOCK_STEPS,
+          "collectives_by_op": {k: v / TRAIN_CLOCK_STEPS for k, v in coll_by_op.items()},
+          "flash_attention_launches_in_steps": b5_in_steps, "flash_attention_step_refused": raised,
+          "mesh_step_equals_single_device": mesh_equal, "mesh_step_differs": mesh_diff[:8],
+          "checkpoint_step": TRAIN_CKPT_STEP, "resume_equal": resume_equal, "resume_differs": resume_diff[:8],
+          "cpu_seconds": cpu_seconds, "cpu_pairs": TRAIN_PAIRS,
+          "loss_card": float(first["loss"]), "loss_cpu": float(cm["loss"]), "loss_rel_diff": loss_rel,
+          "accuracy_card": float(first["accuracy"]), "accuracy_cpu": float(cm["accuracy"]),
+          "grad_max_rel_diff": grad_rel[worst], "grad_worst_leaf": worst, "k_bias_grad_over_top": zero_grad,
+          "tolerances": {"loss_rtol": TRAIN_LOSS_RTOL, "accuracy_atol": TRAIN_ACC_ATOL,
+                         "grad_rtol": TRAIN_GRAD_RTOL, "zero_grad_rtol": TRAIN_ZERO_GRAD_RTOL},
+          "flash_forward_launches": launches, "min_cosine_flash_vs_plain": cos_min,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": nvidia_smi()})
+    if not ok:
+        raise RuntimeError(
+            f"train phase failed: finite {finite}, descends {descends} ({losses[0]} -> {losses[-1]}), cpu {cpu_ok} "
+            f"(loss {loss_rel}, acc {acc_diff}, grad {worst} {grad_rel[worst]}, k bias {zero_grad}), mesh = single "
+            f"{mesh_equal}, resume {resume_equal}, flash refused {flash_refused} ({raised!r}), B5 in steps "
+            f"{b5_in_steps}, forward {launches} cos {cos_min}, collectives {coll}")
+    return launches
 
 
 def drive_driver(dev, peaks, rows):
@@ -3032,6 +3311,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     drive_clip_text(dev, mc_gen, mc_descs[0])
     del mc_descs, mc_gen
+    torch.cuda.empty_cache()
+    rows["train"] = {}
+    by_path["train"] = drive_train(dev, peaks, rows["train"])
+    torch.cuda.empty_cache()
 
     # One row per kernel: the numbers of the newest path that checks it, and
     # under "paths" each path's numbers at its own shapes with its own launch

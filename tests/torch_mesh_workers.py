@@ -507,3 +507,94 @@ def driver_checks(rank, world, folders):
     out["serial"] = run_node(ransac_scene, rank, "serial", methods_ransac=[("vfm", False)], methods_teaser=[],
                              methods_pointdsc=[], batch_scans=False)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The trainer's dp x tp split (tests/test_torch_trainer_mesh.py)
+# ---------------------------------------------------------------------------
+
+# Each case: the ("data", "model") mesh shape at world size 4 and the ViT's
+# head count (64 wide either way): 4 heads divide every model axis here, 2
+# heads at "model" = 4 give each rank half a head.
+TRAIN_CASES = {"dp2_tp2": ((2, 2), 4), "tp4": ((1, 4), 4), "tp4_split_heads": ((1, 4), 2), "dp4": ((4, 1), 4)}
+
+
+def train_vit_config(heads=4):
+    """tests/test_trainer.py's TINY ViT with `heads` heads."""
+    from vfmreg_tpu_torch.models.vit import ViTConfig
+
+    return ViTConfig(hidden_size=64, num_layers=2, num_heads=heads, patch_size=14, pretrain_img_size=56,
+                     use_flash_attention=False)
+
+
+def train_config():
+    from vfmreg_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(adapter_hidden=64, adapter_out=32)
+
+
+def train_batch(seed=42, b=4, hw=56, k=8, grid=16):
+    """tests/test_trainer.py's `_batch`: 4 pairs of 56 x 56 views, K = 8."""
+    rng = np.random.RandomState(seed)
+    ia = rng.normal(size=(b, hw, hw, 3)).astype(np.float32)
+    ib = ia + 0.05 * rng.normal(size=ia.shape).astype(np.float32)
+    idx = rng.randint(0, grid, (b, k)).astype(np.int32)
+    return ia, ib, idx
+
+
+def trainer_checks(rank, world, ckpt_dir, single_ckpt):
+    """Each TRAIN_CASES split from `create_train_state(seed 0)`: the local q
+    weight's shape, step 1's loss, accuracy and gathered gradients, step 2's
+    loss and gathered parameters; a batch of 3 refused at "data" = 4 and 2;
+    the tp4 case's state checkpointed into `ckpt_dir` after step 2; and the
+    one-process checkpoint `single_ckpt` restored at (2, 2): its gathered
+    parameters and moments, and the next step's loss."""
+    import torch
+
+    from vfmreg_tpu_torch.parallel.mesh import make_mesh
+    from vfmreg_tpu_torch.train import trainer as T
+
+    tcfg = train_config()
+    ia, ib, idx = train_batch()
+
+    def gathered(state, key=None):
+        named = dict(state.model.named_parameters())
+        if key == "grad":
+            tensors = {n: p.grad for n, p in named.items()}
+        elif key is not None:
+            tensors = {n: state.optimizer.state[p][key] for n, p in named.items()}
+        else:
+            tensors = named
+        return {n: v.numpy() for n, v in T.gather_full(state.model, tensors).items()}
+
+    out = {}
+    for name, (shape, heads) in TRAIN_CASES.items():
+        mesh = make_mesh(("data", "model"), shape)
+        cfg = train_vit_config(heads)
+        state, _, _ = T.create_train_state(torch.Generator().manual_seed(0), cfg, mesh, tcfg, "cpu")
+        step = T.make_train_step(cfg, mesh, tcfg)
+        r = {"q_shard": tuple(state.model.vit.blocks[0].attn.q.weight.shape)}
+        state, m = step(state, ia, ib, idx)
+        r.update(loss=float(m["loss"]), accuracy=float(m["accuracy"]), grads=gathered(state, "grad"))
+        state, m = step(state, ia, ib, idx)
+        r.update(loss2=float(m["loss"]), params2=gathered(state))
+        if shape[0] > 1:
+            try:
+                step(state, ia[:3], ib[:3], idx[:3])
+                r["odd_batch"] = "accepted"
+            except ValueError as e:
+                r["odd_batch"] = str(e)
+        if name == "tp4":
+            r["ckpt"] = T.save_checkpoint(ckpt_dir, state)
+        out[name] = r
+
+    mesh = make_mesh(("data", "model"), (2, 2))
+    cfg = train_vit_config()
+    state, _, _ = T.create_train_state(torch.Generator().manual_seed(9), cfg, mesh, tcfg, "cpu")
+    state = T.restore_checkpoint(single_ckpt, state)
+    r = {"step": state.step, "params": gathered(state), "exp_avg": gathered(state, "exp_avg"),
+         "exp_avg_sq": gathered(state, "exp_avg_sq")}
+    state, m = T.make_train_step(cfg, mesh, tcfg)(state, ia, ib, idx)
+    r["loss_next"] = float(m["loss"])
+    out["restored"] = r
+    return out

@@ -13,7 +13,9 @@ JBU stack and CLIP's text tower, and `{dip,gedi,spinnet,pointdsc}_params_
 from_numpy` for the baseline descriptor networks and PointDSC, whose port
 modules keep the reference checkpoints' own layout, and
 `resunet_params_from_numpy` for the FCGF / GCL ResUNet (the
-MinkowskiEngine checkpoint's layout). Dense weights `w`
+MinkowskiEngine checkpoint's layout). `adapter_params_from_numpy` and
+`train_state_from_numpy` carry the trainer's adapter and its whole state
+(parameters, adam's moments and count) across. Dense weights `w`
 [in, out] become [out, in] as the checkpoints hold them.
 """
 
@@ -28,6 +30,7 @@ from vfmreg_tpu_torch.models.clip_text import CLIPTextConfig
 from vfmreg_tpu_torch.models.maskclip import MaskCLIPConfig
 from vfmreg_tpu_torch.models.vit import ViTConfig
 from vfmreg_tpu_torch.ops.hash_grid import HashGrid
+from vfmreg_tpu_torch.train.trainer import load_full_state
 from vfmreg_tpu_torch.utils.device import resolve_device
 
 
@@ -317,3 +320,34 @@ def resunet_params_from_numpy(params: Mapping[str, Any], cfg) -> Dict[str, torch
     kern("final", params["final"]["w"])
     out["final.bias"] = _t(params["final"]["b"]).reshape(1, cfg.out_channels)
     return out
+
+
+def adapter_params_from_numpy(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """`train.trainer.Adapter`'s state dict (CPU tensors) from the
+    reference's adapter pytree (`init_adapter_params`, leaves as numpy
+    arrays): `fc1` / `fc2` `w` [in, out] become `weight` [out, in]."""
+    return {f"{name}.{dst}": _t(np.asarray(params[name][src]).T if src == "w" else params[name][src])
+            for name in ("fc1", "fc2") for src, dst in (("w", "weight"), ("b", "bias"))}
+
+
+def train_params_from_numpy(params: Mapping[str, Any], cfg: ViTConfig) -> Dict[str, torch.Tensor]:
+    """{"vit": ..., "adapter": ...} (the reference's `TrainState.params`, or
+    a pytree of the same structure such as adam's `mu`, `nu` or the
+    gradients) as full tensors by the port's full parameter names
+    (`vit.*`, `adapter.*`)."""
+    vit = vit_params_from_numpy(params["vit"], cfg)
+    adapter = adapter_params_from_numpy(params["adapter"])
+    return {**{f"vit.{k}": v for k, v in vit.items()}, **{f"adapter.{k}": v for k, v in adapter.items()}}
+
+
+def train_state_from_numpy(target, params: Mapping[str, Any], cfg: ViTConfig, mu=None, nu=None, count=None,
+                           step: int = 0):
+    """Carry the reference's whole `TrainState` into the port's `target`
+    (`train.trainer.TrainState`, any split): `params` = {"vit", "adapter"}
+    leaves as numpy, and optax adam's `mu`, `nu` (the same structure) and
+    `count` (None before the first update), and the step. Returns target."""
+    full = train_params_from_numpy(params, cfg)
+    if mu is None:
+        return load_full_state(target, full, step=step)
+    return load_full_state(target, full, train_params_from_numpy(mu, cfg), train_params_from_numpy(nu, cfg),
+                           float(np.asarray(count)), step)

@@ -1,6 +1,6 @@
 """Where a path of the port spends its time on the card.
 
-    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|node|descriptor|odometry]
+    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|node|descriptor|odometry|train]
         [--reps N] [--steps-per-read 1,4,16] [--frames N]
 
 Builds the same full-width inputs as `chip_smoke.py` for the path, seed 0:
@@ -15,7 +15,10 @@ descriptor pass
 seeded weights, 8 clouds x 16,384 points, 40 rig images of 1232 x 1616);
 or the KISS odometry (`kiss.kiss_icp.KissICP` with the default config, its
 map resident on the card, over the first `--frames` frames of
-`pipeline.synthetic.SyntheticDrive`: 122,880-point sweeps, 1 m a frame).
+`pipeline.synthetic.SyntheticDrive`: 122,880-point sweeps, 1 m a frame);
+or the trainer (`train.trainer` on one device, `mesh=None`, at ViT-S/14
+with plain attention and the default `TrainConfig`, 8 pairs of 224 x 280
+views, 256 corresponding patches a pair, as chip_smoke's train phase).
 It warms up once, then prints JSON lines:
 
 * `stages`: host-clock seconds of each stage with a synchronize after it,
@@ -32,7 +35,9 @@ It warms up once, then prints JSON lines:
   frame, the median and p90 seconds of each stage of `run_odometry`, and
   frames per second, then the seconds of each free-running run of the same
   frames (`odometry_wall`: one synchronize at the end), with the map's
-  lagged point count and with a synchronize after every map update);
+  lagged point count and with a synchronize after every map update); train:
+  the step's stage clock (forward, backward, gradient_all_reduce,
+  optimizer) summed over `--reps` steps, and steps per second;
 * `profile`: one call without the profiler (odometry: a free-running run), timed on the host clock
   (`wall_s`), then one call under `torch.profiler`: its device-busy seconds
   (the sum of device self time, which on one stream does not overlap), the
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -196,6 +202,34 @@ def _descriptor(reps, dev):
     return run
 
 
+def _train(reps, dev):
+    """The trainer's stage clock over `reps` steps; returns one step."""
+    from vfmreg_tpu_torch.train import trainer as T
+    from vfmreg_tpu_torch.utils.profiling import Timer
+
+    cfg = dataclasses.replace(PRESETS["dinov2_vits14"], use_flash_attention=False)
+    tcfg = T.TrainConfig()
+    state, _, _ = T.create_train_state(torch.Generator().manual_seed(0), cfg, None, tcfg, dev)
+    step = T.make_train_step(cfg, None, tcfg)
+    rng = np.random.RandomState(0)
+    ia = rng.normal(size=(8, 224, 280, 3)).astype(np.float32)
+    ib = ia + 0.05 * rng.normal(size=ia.shape).astype(np.float32)
+    idx = rng.randint(0, 16 * 20, (8, 256)).astype(np.int32)
+    batch = [torch.from_numpy(x).to(dev) for x in (ia, ib, idx)]
+
+    def run():
+        step(state, *batch)
+
+    run()  # warm-up
+    timer = Timer()
+    for _ in range(reps):
+        step(state, *batch, timer=timer)
+    total = sum(timer.totals.values())
+    print(json.dumps({"stages": dict(timer.totals), "total": total, "steps_per_s": reps / total, "reps": reps,
+                      "images_per_step": 2 * ia.shape[0], "device": torch.cuda.get_device_name(0)}))
+    return run
+
+
 ODOMETRY_STAGES = ("preprocess_voxelize", "registration", "map_update", "total")
 
 
@@ -301,7 +335,8 @@ def _odometry(reps, dev, n_frames):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=["slice", "driver", "node", "descriptor", "odometry"], default="slice")
+    ap.add_argument("--path", choices=["slice", "driver", "node", "descriptor", "odometry", "train"],
+                    default="slice")
     ap.add_argument("--frames", type=int, default=60, help="odometry: frames of the drive per run")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
@@ -325,6 +360,9 @@ def main(argv=None):
         return
     if args.path == "odometry":
         _profile(_odometry(args.reps, dev, args.frames), args.top)
+        return
+    if args.path == "train":
+        _profile(_train(args.reps, dev), args.top)
         return
     scene = shared_map_batch(8, 524288, 16384, 384, seed=0)
     mp, mf, sp, sf = (torch.from_numpy(a).to(dev) for a in scene[:4])
@@ -367,9 +405,11 @@ def profile_run(run, top_n: int = 12) -> dict:
         wall_profiled = time.perf_counter() - t0
 
     events = prof.key_averages()
-    # Device-side events only: a CPU op's device time repeats its kernels'.
+    # Device-side kernels only: a CPU op's device time repeats its kernels',
+    # and so does a user annotation's device range (torch's own
+    # "Optimizer.step#AdamW.step" in the train path).
     rows = [(e.key, e.self_device_time_total, e.count) for e in events
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(us for _, us, _ in rows) / 1e6
     top = sorted(rows, key=lambda r: -r[1])[:top_n]
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
