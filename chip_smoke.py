@@ -10,15 +10,18 @@ PyTorch version at the shapes each path gives it (B3 also against
 bit for bit; B1 also at its contract's edges: exact duplicate rows across
 lanes, warps, tiles and splits, an all-masked database, N, M and D off the
 tile sizes, each index equal to the plain version's; B2 and B3 lane-batched
-at the driver's 8 lanes and the slice's one lane, B2's finishing stage fed
+at the driver's and the slice's 8 lanes, B2's finishing stage fed
 the kernel's own moments against the plain one on the card, and their
 one-lane entries), and drives fourteen paths. The first six run B1-B3, the
 odometry B2 and B3, the descriptor passes, featup and train B5:
 
 * slice: B = 8 scans of 16,384 points registered against a 524,288-point map
   with 384-d descriptors (bench.py's primary workload, 1000-iteration
-  budget, random data from a seed) through `vfmreg_tpu_torch.scan_to_map`,
-  every lane checked against its true pose;
+  budget, random data from a seed) through `vfmreg_tpu_torch.scan_to_map`
+  (VFM-ICP as lanes of one loop), every lane checked against its true
+  pose, phase 1's reads of the device at most ceil(max phase-1 iterations
+  / VFM_STEPS_PER_READ) + 1, and the batch bit for bit equal to 8
+  one-lane `register_frame_vfm` calls on the same grid and correspondences;
 * driver: the evaluation driver's method row on bench.py's driver scene at
   the same widths (B = 8 scans of 16,384 points, 524,288-point 384-d map,
   seed 0) through `vfmreg_tpu_torch.pipeline.registration_node
@@ -35,7 +38,8 @@ odometry B2 and B3, the descriptor passes, featup and train B5:
   (one point per occupied 0.25 m voxel), the batched row or the serial
   methods, the serial TEASER column (B1 per correspondence search, exact max
   clique on the host, GNC-TLS on the card, one-lane ICP refine), errors
-  and the recall summary. GT ICP gated against the true poses, vfm RANSAC +
+  and the recall summary (with the GNC steps per TEASER solve and per
+  scene). GT ICP gated against the true poses, vfm RANSAC +
   ICP and vfm TEASER + ICP against GT ICP in the node's own tables, serial
   = batched (GT and vanilla ICP bit for bit, RANSAC within 2e-3), B1-B3
   checked at the serial column's shapes, and `register_frame`'s VFM branch
@@ -1727,7 +1731,7 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
     from vfmreg_tpu_torch.ops import _build
     from vfmreg_tpu_torch.pipeline.registration_node import RegistrationNode
     from vfmreg_tpu_torch.pipeline.synthetic import scene_file_layout
-    from vfmreg_tpu_torch.registration import icp
+    from vfmreg_tpu_torch.registration import icp, teaser
     from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ
 
     t0 = time.perf_counter()
@@ -1759,6 +1763,7 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
             node.compute_errors, node._accumulate_map = recording, keep_map
             torch.cuda.synchronize()
             _build.reset_launches()
+            teaser.GNC_STEPS.clear()
             t0 = time.perf_counter()
             with env_switch("VFMREG_PROFILE_DRIVER"), contextlib.redirect_stdout(out), \
                     icp.recording_loops() as calls:
@@ -1766,7 +1771,8 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             runs[mode] = dict(node=node, gts=[gts[i] for i in sorted(gts)], seconds=seconds,
-                              launches=dict(_build.LAUNCHES), calls=calls, map=maps[0], log=out.getvalue())
+                              launches=dict(_build.LAUNCHES), calls=calls, map=maps[0], log=out.getvalue(),
+                              gnc=dict(teaser.GNC_STEPS))
 
     ok_all = True
     for mode, r in runs.items():
@@ -1802,7 +1808,11 @@ def drive_node(dev, peaks, rows, scene, local_map, true_poses):
               "recall": {m: [node.compute_success_rate(m, *t) for t in ((0.3, 15), (0.6, 1.5), (2, 5))]
                          for m in node.rot_errors},
               "launches": launches, "serial_vfm_searches": node.vfm_searches, "b1_floor": b1_floor,
-              "icp_calls": len(calls), "icp_loops": loops, "summary": summary})
+              "icp_calls": len(calls), "icp_loops": loops,
+              "gnc_steps": {"per_scene": r["gnc"].get("steps", 0), "solves": r["gnc"].get("solves", 0),
+                            "per_solve": r["gnc"].get("steps", 0) / max(r["gnc"].get("solves", 0), 1),
+                            "steps_per_read": teaser.GNC_STEPS_PER_READ},
+              "summary": summary})
         if not ok:
             raise RuntimeError(f"node {mode}: recall {recall_ok} (GT {gt_errs}, {gated}), launches {launches_ok} "
                                f"({launches}, floor {b1_floor}, {loops}), map {r['map'].shape[0]} vs {occupied}")
@@ -3159,6 +3169,7 @@ def drive_odometry_readers(dev, drive):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -3171,7 +3182,11 @@ def main() -> int:
         from vfmreg_tpu_torch.ops.hash_grid import build_hash_grid
         from vfmreg_tpu_torch.ops.matching import l2_normalize
         from vfmreg_tpu_torch.pipeline import registration_node  # noqa: F401
+        from vfmreg_tpu_torch.ops.matching import get_vfm_correspondences_batched
         from vfmreg_tpu_torch.registration.icp import GN_STEPS_PER_READ, champion_group
+        from vfmreg_tpu_torch.registration.vfm_icp import (
+            VFM_STEPS_PER_READ, register_frame_vfm, register_frames_vfm_lanes,
+        )
         from vfmreg_tpu_torch.scan_to_map import (
             KERNEL, MAP_VOXEL_SIZE, MAX_CORRESPONDENCE_DISTANCE, scan_to_map, shared_map_batch, vfm_queries,
         )
@@ -3223,16 +3238,17 @@ def main() -> int:
     dbn = l2_normalize(grid.feats).contiguous()
     rows = {"slice": {"cosine_argmax": check_cosine("slice", qn, dbn, grid.valid, m5.reshape(-1), peaks)}}
     del qn, dbn
-    # B2 and B3: scan 0 at its start, the one lane each VFM-ICP runs; the
-    # one-lane entries of both kernels on the same inputs.
-    src, m1 = sp[:1].contiguous(), sm[:1].contiguous()
+    # B2 and B3: all B scans at their start, the lanes of the one phase-2
+    # loop that serves the batch; the one-lane entries of both kernels (the
+    # one-scan callers' B = 1 loop) on scan 0.
+    src = sp.contiguous()
     group = champion_group(grid)
-    planes, caches = lane_planes(grid, src, m1, group)
+    planes, caches = lane_planes(grid, src, sm, group)
     rows["slice"]["champions_from_planes"], champs = check_champions_lanes(
-        "slice", planes, src, m1, group, caches, peaks)
-    check_champions("slice", tuple(planes[:, 0]), src[0], m1[0], group, caches[0], peaks)
+        "slice", planes, src, sm, group, caches, peaks)
+    check_champions("slice", tuple(planes[:, 0]), src[0], sm[0], group, caches[0], peaks)
     rows["slice"]["gn_moments_from_cache"] = check_gn_lanes(
-        "slice", champs, src, m1, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
+        "slice", champs, src, sm, KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
     check_gn("slice", caches[0], src[0], src[0].mean(dim=0).tolist(), KERNEL, MAX_CORRESPONDENCE_DISTANCE, peaks)
     cache = (caches[0].cx, caches[0].cy, caches[0].cz)
     rows["slice"]["nn_argmin"] = check_nn_argmin("slice", *cache, src[0], peaks)
@@ -3252,18 +3268,50 @@ def main() -> int:
     phase2 = (res.iterations - res.vfm_iterations).tolist()
     rebuilds = int(res.rebuilds.sum())
     lanes_ok = all(rte < RTE_GATE_M and rre < RRE_GATE_DEG for rte, rre in errs)
-    # Each scan's VFM-ICP runs its own one-lane loop: the rounds are at most
-    # the sum of the scans' phase-2 iterations.
-    loop = loop_check(res.loop, phase2, res.rebuilds.tolist(), GN_STEPS_PER_READ, sum(phase2))
+    # One lane loop serves the batch: phase 2's rounds are at most the
+    # largest phase-2 iteration count; phase 1 reads the lanes' done flags
+    # once every VFM_STEPS_PER_READ steps.
+    loop = loop_check(res.loop, phase2, res.rebuilds.tolist(), GN_STEPS_PER_READ, max(phase2))
+    vfm_read_bound = -(-int(res.vfm_iterations.max()) // VFM_STEPS_PER_READ) + 1
+    reads_ok = (res.loop["vfm_reads"] <= vfm_read_bound
+                and res.loop["vfm_steps"] == VFM_STEPS_PER_READ * res.loop["vfm_reads"])
     launches_ok = (launches.get("cosine_argmax", 0) >= 1
                    and launches.get("gn_moments_from_cache", 0) == loop["step_calls"]
                    and rebuilds > 0 and launches.get("champions_from_planes", 0) == loop["rebuild_rounds"]
                    and loop["ok"])
-    emit({"phase": "slice", "ok": lanes_ok and launches_ok, "seconds": seconds,
+    # The batch against one-lane calls on the same grid and correspondences.
+    grid = build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf)
+    corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, *vfm_queries(sp, sf, sm, N_VFM))
+    eye = torch.eye(4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = register_frames_vfm_lanes(grid, sp, sm, corrs, eye.expand(BATCH, 4, 4), MAX_CORRESPONDENCE_DISTANCE,
+                                      KERNEL, max_iterations=MAX_ITERATIONS)
+    torch.cuda.synchronize()
+    lanes_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ones = [register_frame_vfm(grid, sp[j], sm[j], corrs.lane(j), eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL,
+                               max_iterations=MAX_ITERATIONS) for j in range(BATCH)]
+    torch.cuda.synchronize()
+    one_lane_seconds = time.perf_counter() - t0
+    one_lane_equal = all(
+        torch.equal(batch.poses[j], o.pose) and torch.equal(batch.corr_mask[j], o.corr_mask)
+        and torch.equal(batch.src_corr[j], o.src_corr)
+        and (batch.vfm_iterations[j], batch.iterations[j], batch.rebuilds[j]) == (
+            o.vfm_iterations, o.iterations, o.rebuilds)
+        for j, o in enumerate(ones))
+    same_as_main = bool(np.array_equal(batch.poses.numpy(), res.poses)
+                        and np.array_equal(batch.iterations, res.iterations))
+    del grid, corrs, batch, ones
+    emit({"phase": "slice", "ok": lanes_ok and launches_ok and reads_ok and one_lane_equal, "seconds": seconds,
           "reg_per_s": BATCH / seconds, "batch": BATCH, "map_points": N_MAP, "scan_points": N_SCAN,
           "dim": DIM, "n_vfm": N_VFM, "max_iterations": MAX_ITERATIONS,
           "iterations": res.iterations.tolist(), "vfm_iterations": res.vfm_iterations.tolist(),
           "phase2_iterations": phase2, "rebuilds": rebuilds, "gn_steps_per_read": GN_STEPS_PER_READ,
+          "vfm_steps": res.loop["vfm_steps"], "vfm_reads": res.loop["vfm_reads"],
+          "vfm_steps_per_read": VFM_STEPS_PER_READ, "vfm_read_bound": vfm_read_bound, "vfm_reads_ok": reads_ok,
+          "one_lane_bit_identical": one_lane_equal, "lanes_seconds": lanes_seconds,
+          "one_lane_calls_seconds": one_lane_seconds, "lanes_equal_main_run": same_as_main,
           "icp_loop": loop, "n_correspondences": res.n_correspondences.tolist(),
           "rte_m": [e[0] for e in errs], "rre_deg": [e[1] for e in errs], "launches": launches,
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
@@ -3272,6 +3320,11 @@ def main() -> int:
     if not launches_ok:
         raise RuntimeError(f"the main path did not go through every kernel: {launches}, "
                            f"phase 2 = {phase2}, rebuilds = {rebuilds}, loop = {loop}")
+    if not reads_ok:
+        raise RuntimeError(f"VFM-ICP phase 1 read the device {res.loop['vfm_reads']} times "
+                           f"({res.loop['vfm_steps']} steps; bound {vfm_read_bound})")
+    if not one_lane_equal:
+        raise RuntimeError("the VFM-ICP lanes differ from one-lane calls on the same inputs")
     del mp, mf, sp, sf, res
     torch.cuda.empty_cache()
 

@@ -3,9 +3,11 @@ an ICP row, and `geometric_icp_loop_lanes`.
 
 * `gn_step_lanes` (its plain version, which the wrapper runs for CPU
   tensors) is, lane for lane and bit for bit, one iteration of the per-lane
-  loop it replaced: `gn_moments_plain` -> `assemble_gn_system` -> the host
-  `gn_step` -> `exp_se3` -> `conjugate_translation` -> `transform_points`,
-  with the stop tests in numpy f32. Held on a normal lane, an empty lane, a
+  loop it replaced: `gn_moments_plain` -> `assemble_gn_system` -> a host
+  `gn_step` (`_host_gn_step`: the reference's floor, unrolled Cholesky and
+  gate in numpy f32) -> `exp_se3` -> the conjugation by the centre ->
+  `transform_points` (one lane of `geometry.se3.*_lanes`: the products
+  written out in kernel B2's order), with the stop tests in numpy f32. Held on a normal lane, an empty lane, a
   lane with a NaN query, a one-point (rank-deficient) lane and a frozen lane,
   and on crafted moments whose system is not positive definite;
 * the lane-batched B3 equals per-lane `champions_from_planes_plain` (and
@@ -34,7 +36,13 @@ import jax.numpy as jnp  # noqa: E402
 from vfmreg_tpu.ops import hash_grid as jhg  # noqa: E402
 from vfmreg_tpu.registration import icp as jicp  # noqa: E402
 from vfmreg_tpu_torch.convert import grid_from_numpy  # noqa: E402
-from vfmreg_tpu_torch.geometry.se3 import conjugate_translation, exp_se3, transform_points  # noqa: E402
+from vfmreg_tpu_torch.geometry.se3 import (  # noqa: E402
+    conjugate_translation_lanes,
+    exp_se3,
+    exp_se3_lanes,
+    matmul_lanes,
+    transform_points_lanes,
+)
 from vfmreg_tpu_torch.ops import champion_kernel as tck  # noqa: E402
 from vfmreg_tpu_torch.ops import gn_kernel as tgn  # noqa: E402
 from vfmreg_tpu_torch.ops import hash_grid as thg  # noqa: E402
@@ -56,6 +64,41 @@ def _same(a, b):
     return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
 
 
+def _cholesky_solve6(A, b):
+    """The reference's unrolled 6x6 Cholesky solve in numpy f32 scalars,
+    every sum from 0 in ascending order."""
+    z = _f32(0.0)
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        L[j][j] = np.sqrt(A[j][j] - sum((L[j][k] * L[j][k] for k in range(j)), z))
+        for i in range(j + 1, 6):
+            L[i][j] = (A[i][j] - sum((L[i][k] * L[j][k] for k in range(j)), z)) / L[j][j]
+    y = [None] * 6
+    for i in range(6):
+        y[i] = (b[i] - sum((L[i][k] * y[k] for k in range(i)), z)) / L[i][i]
+    x = [None] * 6
+    for i in reversed(range(6)):
+        x[i] = (y[i] - sum((L[k][i] * x[k] for k in range(i + 1, 6)), z)) / L[i][i]
+    return np.array(x, dtype=np.float32)
+
+
+def _host_gn_step(JTJ, JTr, n_corr):
+    """The reference's `gn_step` on the host, one system at a time: (dx, n)
+    with the 1e-8 floor and dx zero when n is 0 or the solve not finite."""
+    A = JTJ.numpy() + _f32(1e-8) * np.eye(6, dtype=np.float32)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        dx = _cholesky_solve6([[_f32(v) for v in r] for r in A], [_f32(v) for v in -JTr.numpy()])
+    n = int(n_corr)
+    if n > 0 and np.all(np.isfinite(dx)):
+        return dx, n
+    return np.zeros(6, dtype=np.float32), n
+
+
+def _est(dx, center):
+    """One lane's pose update: `exp_se3` of dx conjugated by the centre."""
+    return conjugate_translation_lanes(exp_se3_lanes(torch.from_numpy(dx)[None]), center[None])[0]
+
+
 class _Lane:
     """One lane of the per-lane loop: its host state and the old loop body."""
 
@@ -67,10 +110,10 @@ class _Lane:
     def step(self, cx, cy, cz, source, center):
         m = tgn.gn_moments_plain(cx, cy, cz, source, center.tolist(), KERNEL, MAX_DIST)
         JTJ, JTr, n_corr = tgn.assemble_gn_system(m)
-        dx, n_corr = ticp.gn_step(JTJ, JTr, n_corr)
-        est = conjugate_translation(exp_se3(torch.from_numpy(dx)), center)
-        source = transform_points(source, est)
-        self.T = est @ self.T
+        dx, n_corr = _host_gn_step(JTJ, JTr, n_corr)
+        est = _est(dx, center)
+        source = transform_points_lanes(source[None], est[None])[0]
+        self.T = matmul_lanes(est[None], self.T[None])[0]
         self.dxn = _norm(dx)
         self.confirmed = self.s == 0 and self.dxn < _f32(THR)
         self.moved = self.moved + _norm(dx[:3]) + _norm(dx[3:]) * self.r_max
@@ -208,10 +251,10 @@ def test_gn_finish_lanes_plain_on_crafted_systems():
     zero_step = []
     for j in range(b):
         JTJ, JTr, n_corr = tgn.assemble_gn_system(m[j])
-        dx, n = ticp.gn_step(JTJ, JTr, n_corr)
+        dx, n = _host_gn_step(JTJ, JTr, n_corr)
         assert _same(st.dx[j], dx), (j, st.dx[j], dx)
-        est = conjugate_translation(exp_se3(torch.from_numpy(dx)), center[j])
-        assert _same(st.est[j], est) and _same(st.T[j], est @ torch.eye(4))
+        est = _est(dx, center[j])
+        assert _same(st.est[j], est) and _same(st.T[j], matmul_lanes(est[None], torch.eye(4)[None])[0])
         assert st.floats[j, tgn.DXN].item() == _norm(dx)
         assert st.ints[j, tgn.DONE].item() == (n == 0)
         assert st.ints[j, tgn.CONF].item() == (_norm(dx) < _f32(THR))

@@ -5,7 +5,7 @@
   champion cache, at rtol 1e-5 of each moment's scale (the sum of the
   absolute values of its terms);
 * `assemble_gn_system`, `build_linear_system` and the unrolled Cholesky
-  `gn_step` against the reference's;
+  `gn_solve_lanes` against the reference's `gn_step`;
 * `geometric_icp_loop` (champions rebuilt by kernel B3's plain version)
   against the reference's ("slabs" rebuild), from an offset
   large enough for several slab re-gathers and champion rebuilds: equal
@@ -103,13 +103,16 @@ def test_build_linear_system_and_gn_step_match_jax():
 
     # The unrolled Cholesky on one system: the reference's f32 arithmetic.
     dx_ref = np.asarray(jicp.gn_step(jJTJ, jJTr, jn))
-    dx, n_host = ticp.gn_step(torch.from_numpy(np.array(jJTJ)), torch.from_numpy(np.array(jJTr)),
-                              torch.tensor(int(jn)))
-    assert n_host == int(jn)
-    np.testing.assert_allclose(dx, dx_ref, rtol=1e-5, atol=1e-7)
+    dx = ticp.gn_solve_lanes(torch.from_numpy(np.array(jJTJ))[None], torch.from_numpy(np.array(jJTr))[None],
+                             torch.tensor([int(jn)]))[0]
+    np.testing.assert_allclose(dx.numpy(), dx_ref, rtol=1e-5, atol=1e-7)
     # An empty or singular system gives a zero step.
-    zero, n0 = ticp.gn_step(torch.zeros(6, 6), torch.ones(6), torch.tensor(0))
-    assert n0 == 0 and not zero.any()
+    zero = ticp.gn_solve_lanes(torch.zeros(1, 6, 6), torch.ones(1, 6), torch.tensor([0]))
+    assert not zero.any()
+    # The n > 0 gate on its own: the finite system above with a count of 0.
+    gated = ticp.gn_solve_lanes(torch.from_numpy(np.array(jJTJ))[None], torch.from_numpy(np.array(jJTr))[None],
+                                torch.tensor([0]))
+    assert dx.abs().max() > 0 and not gated.any()
 
 
 def _offset_scan(seed, n_map=6000, n_scan=1500):

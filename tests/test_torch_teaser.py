@@ -10,6 +10,11 @@
 * the GNC loop's fixed `max_iters` steps with a live flag equal, bit for
   bit, a loop written here that stops on the reference's cost condition
   and reads the cost every step;
+* the GNC loop read every `GNC_STEPS_PER_READ` steps (early convergence,
+  never converging, `max_iters` = 7): R and w equal bit for bit to the
+  fixed-step loop and within 1e-4 of the reference's `_gnc_tls_rotation`,
+  and its counted steps the reference's stop count rounded up to the
+  chunk, at most `max_iters`;
 * `_scalar_tls` within 1e-6 of the reference's on the reference test's
   voting problem;
 * the greedy form: `_consistency_graph` and `_greedy_clique` equal to the
@@ -27,6 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from scipy.spatial.transform import Rotation  # noqa: E402
 
@@ -134,6 +140,60 @@ def test_gnc_fixed_steps_equal_the_stopping_loop():
         it += 1
     assert 1 < it < 100, it  # the loop stopped on its cost, before the budget
     assert torch.equal(R_fixed, R) and torch.equal(w_fixed, w)
+
+
+def _gnc_fixed(a, b, w_mask, nb, cbar2, factor, max_iters, thr):
+    """The GNC loop as it took all `max_iters` steps, frozen by its live flag."""
+    eps2 = torch.clamp(nb * nb, min=1e-12)
+    R, mu = tteaser._gnc_init(a, b, w_mask, eps2, cbar2)
+    w = w_mask.to(torch.float32)
+    prev_cost, cost = torch.tensor(float("inf")), torch.tensor(0.0)
+    for _ in range(max_iters):
+        live = torch.abs(cost - prev_cost) > thr
+        R_new, w_new, cost_new = tteaser._gnc_step(a, b, w_mask, R, mu, eps2, cbar2)
+        R, w = torch.where(live, R_new, R), torch.where(live, w_new, w)
+        mu = torch.where(live, mu * factor, mu)
+        prev_cost, cost = torch.where(live, cost, prev_cost), torch.where(live, cost_new, cost)
+    return R, w
+
+
+@pytest.mark.parametrize("max_iters, thr", [(100, 1e-16), (100, -1.0), (7, 1e-16)],
+                         ids=["converges", "never_converges", "max_iters_7"])
+def test_gnc_stops_at_the_reference_count(max_iters, thr, monkeypatch):
+    src, tgt = _problem(5, 120, 0.3, noise=0.03)
+    a, b = src[1:] - src[:-1], tgt[1:] - tgt[:-1]
+    w_mask = np.ones(a.shape[0], bool)
+    w_mask[::5] = False
+    args = [np.float32(v) for v in (0.05, 1.0, 1.4)]
+
+    # The reference's stop count: the last state of its while_loop.
+    seen = {}
+    orig = jax.lax.while_loop
+
+    def spy(cond, body, init):
+        out = orig(cond, body, init)
+        seen["it"] = int(out[3])
+        return out
+
+    monkeypatch.setattr(jax.lax, "while_loop", spy)
+    jR, jw = jteaser._gnc_tls_rotation(jnp.asarray(a), jnp.asarray(b), jnp.asarray(w_mask),
+                                       *(jnp.float32(v) for v in args), max_iters, jnp.float32(thr))
+    monkeypatch.undo()
+
+    t = [torch.from_numpy(x) for x in (a, b, w_mask)] + [torch.tensor(v) for v in args]
+    tteaser.GNC_STEPS.clear()
+    R, w = tteaser._gnc_tls_rotation(*t, max_iters, torch.tensor(np.float32(thr)))
+    R_fixed, w_fixed = _gnc_fixed(*t, max_iters, torch.tensor(np.float32(thr)))
+    assert torch.equal(R, R_fixed) and torch.equal(w, w_fixed)
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-4)
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-4)
+    chunk = tteaser.GNC_STEPS_PER_READ
+    assert tteaser.GNC_STEPS == {"solves": 1, "steps": min(-(-seen["it"] // chunk) * chunk, max_iters)}, (
+        tteaser.GNC_STEPS, seen)
+    if thr < 0:
+        assert seen["it"] == max_iters
+    elif max_iters == 100:
+        assert 1 < seen["it"] < 100 and seen["it"] % chunk, seen  # a stop inside a chunk
 
 
 def test_scalar_tls_matches_jax():

@@ -166,7 +166,7 @@ __global__ void __launch_bounds__(NT) gn_partial_kernel(
 
 // exp_se3 of dx = [upsilon, omega], conjugated by the centre c:
 // E (row-major 3 x 4) = [R | (t + c) - R c], in the order of
-// geometry/se3.py:exp_se3 and registration/icp.py:_conjugate_translation.
+// geometry/se3.py:exp_se3_lanes and conjugate_translation_lanes.
 __device__ void exp_se3_conjugated(const float* dx, const float* c, float* E) {
   const float w0 = dx[3], w1 = dx[4], w2 = dx[5];
   const float theta2 = dot3(w0, w1, w2, w0, w1, w2);

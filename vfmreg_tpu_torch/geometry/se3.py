@@ -34,17 +34,25 @@ def _eye_like(K: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
 
 
-def exp_so3(w: torch.Tensor) -> torch.Tensor:
-    """Rodrigues' formula with a series branch below theta^2 = 1e-8."""
-    theta2 = torch.sum(w * w, dim=-1)
+def _so3_coeffs(theta2: torch.Tensor):
+    """Rodrigues' coefficients sin(t)/t, (1 - cos t)/t^2 and (t - sin t)/t^3
+    of theta2 = t^2, each with its series branch below theta2 = 1e-8."""
     small = theta2 < 1e-8
     theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(theta2_safe)
-    K = hat_so3(w)
-    K2 = K @ K
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
-    return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * K2
+    c = torch.where(
+        small, 1.0 / 6.0 - theta2 / 120.0, (theta - torch.sin(theta)) / (theta2_safe * theta)
+    )
+    return a, b, c
+
+
+def exp_so3(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula with a series branch below theta^2 = 1e-8."""
+    a, b, _ = _so3_coeffs(torch.sum(w * w, dim=-1))
+    K = hat_so3(w)
+    return _eye_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
 
 
 def log_so3(R: torch.Tensor) -> torch.Tensor:
@@ -87,20 +95,6 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     return torch.where(near_pi[..., None], w_pi, w)
 
 
-def _left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
-    theta2 = torch.sum(w * w, dim=-1)
-    small = theta2 < 1e-8
-    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
-    theta = torch.sqrt(theta2_safe)
-    K = hat_so3(w)
-    K2 = K @ K
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_safe)
-    c = torch.where(
-        small, 1.0 / 6.0 - theta2 / 120.0, (theta - torch.sin(theta)) / (theta2_safe * theta)
-    )
-    return _eye_like(K) + b[..., None, None] * K + c[..., None, None] * K2
-
-
 def _left_jacobian_inv_so3(w: torch.Tensor) -> torch.Tensor:
     theta2 = torch.sum(w * w, dim=-1)
     small = theta2 < 1e-8
@@ -117,16 +111,27 @@ def _left_jacobian_inv_so3(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(K) - 0.5 * K + cot_term[..., None, None] * K2
 
 
-def exp_se3(dx: torch.Tensor) -> torch.Tensor:
-    """SE(3) exponential. (..., 6) [upsilon, omega] -> (..., 4, 4)."""
+def _exp_se3(dx: torch.Tensor, theta2: torch.Tensor, mm) -> torch.Tensor:
+    """exp(dx) = [[R, Jl @ upsilon], [0, 1]] with R and the left Jacobian Jl
+    from `_so3_coeffs(theta2)`, theta2 = |omega|^2, and products by `mm`."""
     upsilon, omega = dx[..., :3], dx[..., 3:]
-    R = exp_so3(omega)
-    t = (_left_jacobian_so3(omega) @ upsilon[..., None])[..., 0]
+    a, b, c = _so3_coeffs(theta2)
+    K = hat_so3(omega)
+    K2 = mm(K, K)
+    eye = _eye_like(K)
+    R = eye + a[..., None, None] * K + b[..., None, None] * K2
+    Jl = eye + b[..., None, None] * K + c[..., None, None] * K2
     T = torch.zeros(dx.shape[:-1] + (4, 4), dtype=dx.dtype, device=dx.device)
     T[..., :3, :3] = R
-    T[..., :3, 3] = t
+    T[..., :3, 3] = mm(Jl, upsilon[..., None])[..., 0]
     T[..., 3, 3] = 1.0
     return T
+
+
+def exp_se3(dx: torch.Tensor) -> torch.Tensor:
+    """SE(3) exponential. (..., 6) [upsilon, omega] -> (..., 4, 4)."""
+    omega = dx[..., 3:]
+    return _exp_se3(dx, torch.sum(omega * omega, dim=-1), torch.matmul)
 
 
 def log_se3(T: torch.Tensor) -> torch.Tensor:
@@ -146,14 +151,6 @@ def inverse_se3(T: torch.Tensor) -> torch.Tensor:
     return T_inv
 
 
-def conjugate_translation(T: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
-    """T(center) @ T @ T(-center) for one [4, 4] T, without building the
-    translations."""
-    out = T.clone()
-    out[:3, 3] = T[:3, 3] + center - T[:3, :3] @ center
-    return out
-
-
 def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Apply a homogeneous 4x4 transform to (..., N, 3) points.
 
@@ -161,3 +158,42 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     cost centimetres at 100 m coordinates."""
     T = T.to(device=points.device, dtype=points.dtype)
     return points @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+# Lane forms: [B, ...] with every sum written out entry by entry in
+# ascending order. A batched BLAS product, or a reduction over a short axis,
+# may round otherwise as the batch changes (on the card, and in the CPU's
+# BLAS); these give each lane what its own B = 1 call gives.
+
+
+def matmul_lanes(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B over leading batch dimensions, (..., n, k) @ (..., k, m), each
+    entry summed over k in ascending order."""
+    acc = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in range(1, A.shape[-1]):
+        acc = acc + A[..., :, k : k + 1] * B[..., k : k + 1, :]
+    return acc
+
+
+def _sq3_lanes(w: torch.Tensor) -> torch.Tensor:
+    return (w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1]) + w[..., 2] * w[..., 2]
+
+
+def exp_se3_lanes(dx: torch.Tensor) -> torch.Tensor:
+    """`exp_se3` of dx [B, 6] -> [B, 4, 4] with the sums of `matmul_lanes`."""
+    return _exp_se3(dx, _sq3_lanes(dx[..., 3:]), matmul_lanes)
+
+
+def conjugate_translation_lanes(T: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """T(center) @ T @ T(-center) for T [B, 4, 4] and each lane's center
+    [B, 3], without building the translations."""
+    out = T.clone()
+    out[..., :3, 3] = T[..., :3, 3] + center - matmul_lanes(T[..., :3, :3], center[..., None])[..., 0]
+    return out
+
+
+def transform_points_lanes(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """`transform_points` of points [B, N, 3] by T [B, 4, 4], the product
+    written out (exact f32, no TF32 whatever the matmul settings)."""
+    T = T.to(device=points.device, dtype=points.dtype)
+    return matmul_lanes(points, T[..., :3, :3].transpose(-1, -2)) + T[..., None, :3, 3]

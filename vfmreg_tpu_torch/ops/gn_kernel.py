@@ -22,10 +22,12 @@ every other lane bit for bit as it was.
 The CUDA kernels are `csrc/gn_moments.cu`. `gn_moments_plain` and
 `gn_step_lanes_plain` are the same functions in plain PyTorch; the latter
 gives, lane for lane and bit for bit, what one iteration of the per-lane
-loop gives (`gn_moments_plain` -> `assemble_gn_system` ->
-`registration.icp.gn_step` -> `exp_se3` -> `conjugate_translation` ->
-`transform_points`). The wrappers run the plain versions for CPU tensors
-only; for CUDA tensors they launch the kernels or raise.
+loop gives (`gn_moments_plain` -> `assemble_gn_system` -> the reference's
+`gn_step` in f32, `registration.icp.gn_solve_lanes` -> `exp_se3` -> the
+conjugation by the centre -> `transform_points`, their products written
+out in the kernel's order: `geometry.se3.*_lanes`). The wrappers run the plain
+versions for CPU tensors only; for CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -36,7 +38,12 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from vfmreg_tpu_torch.geometry.se3 import conjugate_translation, exp_se3, transform_points
+from vfmreg_tpu_torch.geometry.se3 import (
+    conjugate_translation_lanes,
+    exp_se3_lanes,
+    matmul_lanes,
+    transform_points_lanes,
+)
 from vfmreg_tpu_torch.ops import _build
 
 NAME = "gn_moments_from_cache"
@@ -238,9 +245,11 @@ def lanes_live(st: GNLanes, threshold: float, refresh_interval: int) -> torch.Te
 
 
 def _cholesky_solve6_lanes(A, b):
-    """`registration.icp._cholesky_solve6` on [B] lanes at once, operation for
-    operation: A is a 6 x 6 nested list of [B] tensors (its lower triangle is
-    read), b a list of 6; every sum starts from 0 and adds in ascending order."""
+    """The reference's unrolled `_cholesky_solve6`
+    (`vfmreg_tpu/registration/icp.py:111`) on [B] lanes at once, operation
+    for operation: A is a 6 x 6 nested list of [B] tensors (its lower
+    triangle is read), b a list of 6; every sum starts from 0 and adds in
+    ascending order."""
     zero = torch.zeros_like(b[0])
     L = [[None] * 6 for _ in range(6)]
     for j in range(6):
@@ -281,16 +290,17 @@ def gn_finish_lanes_plain(m: torch.Tensor, st: GNLanes, center: torch.Tensor, li
                           threshold: float, refresh_interval: int) -> None:
     """The lanes' step from their moments m [B, 17], in place, for the lanes
     in `live` (`lanes_live` before the step): the system of
-    `assemble_gn_system` with `gn_step`'s 1e-8 floor, the unrolled Cholesky,
-    the `n > 0 and finite` gate, the pose update and the stop flags. Leaves
-    the sources alone (`gn_step_lanes_plain` moves them)."""
+    `assemble_gn_system` with `registration.icp.gn_solve_lanes`'s 1e-8
+    floor, the unrolled Cholesky, the `n > 0 and finite` gate, the pose
+    update and the stop flags. Leaves the sources alone
+    (`gn_step_lanes_plain` moves them)."""
     sw, s1x, s1y, s1z = m[:, 1], m[:, 2], m[:, 3], m[:, 4]
     sxx, syy, szz, sxy, sxz, syz = (m[:, j] for j in range(5, 11))
     tr = sxx + syy + szz
     zero = torch.zeros_like(sw)
     fl = _f32(1e-8).to(m.device)
 
-    def off(x):  # gn_step adds the floor's zero off the diagonal
+    def off(x):  # gn_solve_lanes adds the floor's zero off the diagonal
         return x + zero
 
     # assemble_gn_system's JTJ (`sw * eye`, `hat`, `tr * eye - S2`), lower triangle.
@@ -326,13 +336,13 @@ def gn_finish_lanes_plain(m: torch.Tensor, st: GNLanes, center: torch.Tensor, li
     st.floats.copy_(torch.where(live[:, None], new_floats, F))
     st.moments.copy_(torch.where(live[:, None], m, st.moments))
     st.dx.copy_(torch.where(live[:, None], dx, st.dx))
-    # The pose update lane by lane: a 3 x 3 product on the CPU goes to the
-    # BLAS, whose rounding a batched product does not repeat. Every lane is
-    # computed and the live ones kept, so that no step waits on a read.
-    for j in range(live.shape[0]):
-        est = conjugate_translation(exp_se3(st.dx[j]), center[j])
-        st.est[j] = torch.where(live[j], est, st.est[j])
-        st.T[j] = torch.where(live[j], est @ st.T[j], st.T[j])
+    # The pose update with its products written out in B2's order
+    # (`se3.*_lanes`): a library 3 x 3 product rounds otherwise. Every lane
+    # is computed and the live ones kept, so that no step waits on a read.
+    est = conjugate_translation_lanes(exp_se3_lanes(st.dx), center)
+    keep = live[:, None, None]
+    st.T.copy_(torch.where(keep, matmul_lanes(est, st.T), st.T))
+    st.est.copy_(torch.where(keep, est, st.est))
 
 
 def gn_step_lanes_plain(cx, cy, cz, source, center, kernel: float, max_dist: float,
@@ -344,8 +354,7 @@ def gn_step_lanes_plain(cx, cy, cz, source, center, kernel: float, max_dist: flo
     for j in lanes:
         m[j] = gn_moments_plain(cx[j], cy[j], cz[j], source[j], center[j], kernel, max_dist)
     gn_finish_lanes_plain(m, st, center, live, threshold, refresh_interval)
-    for j in lanes:
-        source[j] = transform_points(source[j], st.est[j])
+    source.copy_(torch.where(live[:, None, None], transform_points_lanes(source, st.est), source))
 
 
 def gn_step_lanes(

@@ -82,7 +82,7 @@ from vfmreg_tpu_torch.registration.icp import (
     register_frames_icp_stats,
 )
 from vfmreg_tpu_torch.registration.ransac import ransac_batched, snap_correspondences
-from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
+from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm, register_frames_vfm_lanes
 
 MIN, SUM, MAX = dist.ReduceOp.MIN, dist.ReduceOp.SUM, dist.ReduceOp.MAX
 
@@ -344,11 +344,15 @@ def map_sharded_icp(
     return run
 
 
+def _vfm_correspondences_sharded(mp, mf, mm, sp, sf, sm, guess, group, min_cosine_similarity):
+    guess = torch.as_tensor(guess, dtype=torch.float32)
+    return guess, get_vfm_correspondences_map_sharded(mp, mf, mm, transform_points(sp, guess), sf, sm, group,
+                                                      min_cosine_similarity)
+
+
 def _vfm_register_sharded(grid, mp, mf, mm, sp, sf, sm, guess, max_dist, kernel, group,
                           min_cosine_similarity, max_iterations):
-    guess = torch.as_tensor(guess, dtype=torch.float32)
-    corr = get_vfm_correspondences_map_sharded(mp, mf, mm, transform_points(sp, guess), sf, sm, group,
-                                               min_cosine_similarity)
+    guess, corr = _vfm_correspondences_sharded(mp, mf, mm, sp, sf, sm, guess, group, min_cosine_similarity)
     res = register_frame_vfm(grid, sp, sm, corr, guess, max_dist, kernel, max_iterations=max_iterations,
                              merge_cache=CacheMerge(group))
     return res.pose, corr.count
@@ -380,8 +384,10 @@ def dp_map_sharded_vfm_register(
 ):
     """dp x tp on a 2-D (data, model) mesh (reference `:537`): each rank
     holds its data block of the scans and its model block of the map's rows
-    (`shard_rows` on each axis), builds one grid over its rows and registers
-    its scans one after another, every collective on the `model` group only:
+    (`shard_rows` on each axis), builds one grid over its rows, matches its
+    scans one after another and registers them as lanes of one VFM-ICP loop
+    (`register_frames_vfm_lanes`, the reference's vmap) with one
+    `CacheMerge`, every collective on the `model` group only:
     `f(map_pts, map_feats, map_mask, scan_pts [B / n_data, N, 3], scan_feats,
     scan_mask, guesses [B / n_data, 4, 4], max_dist, kernel) -> (poses,
     counts)` of this rank's scans."""
@@ -389,10 +395,12 @@ def dp_map_sharded_vfm_register(
 
     def run(mp, mf, mm, sps, sfs, sms, guesses, max_dist, kernel):
         grid = build_hash_grid(mp, voxel_size, mask=mm)
-        out = [_vfm_register_sharded(grid, mp, mf, mm, sp, sf, sm, g, max_dist, kernel, group,
-                                     min_cosine_similarity, max_iterations)
+        out = [_vfm_correspondences_sharded(mp, mf, mm, sp, sf, sm, g, group, min_cosine_similarity)
                for sp, sf, sm, g in zip(sps, sfs, sms, guesses)]
-        return torch.stack([p for p, _ in out]), torch.stack([c for _, c in out])
+        corr = VFMCorrespondences(*(torch.stack(f) for f in zip(*(c for _, c in out))))
+        res = register_frames_vfm_lanes(grid, sps, sms, corr, torch.stack([g for g, _ in out]), max_dist,
+                                        kernel, max_iterations=max_iterations, merge_cache=CacheMerge(group))
+        return res.poses, corr.count
 
     return run
 

@@ -1,7 +1,8 @@
 """Where a path of the port spends its time on the card.
 
-    python -m vfmreg_tpu_torch.profile_slice [--path slice|driver|node|descriptor|odometry|train]
-        [--reps N] [--steps-per-read 1,4,16] [--frames N]
+    python -m vfmreg_tpu_torch.profile_slice [--path slice|vfm|driver|node|descriptor|odometry|train]
+        [--reps N] [--steps-per-read 1,4,16] [--vfm-steps-per-read 1,2,4] [--entries lanes,one_lane]
+        [--frames N]
 
 Builds the same full-width inputs as `chip_smoke.py` for the path, seed 0:
 the scan-to-map slice, the evaluation driver's method row
@@ -22,15 +23,19 @@ views, 256 corresponding patches a pair, as chip_smoke's train phase).
 It warms up once, then prints JSON lines:
 
 * `stages`: host-clock seconds of each stage with a synchronize after it,
-  summed over `--reps` runs (slice: grid build, 5 m voxelize, matching, each
-  lane's VFM-ICP; driver: the row's own stage clock under
-  VFMREG_PROFILE_DRIVER=1, with the GN iterations
-  of each ICP row and, per ICP row, its loop's kernel B2 step calls, device
-  reads, kernel B3 launches and per-lane iterations and rebuilds; with
-  `--steps-per-read 1,4,16` one such line per value of
+  summed over `--reps` runs (slice: grid build, 5 m voxelize, matching, the
+  batch's VFM-ICP lane loop, with its iterations and loop counts; vfm:
+  VFM-ICP alone on the slice's grid and correspondences, the batch as one
+  lane loop and as 8 one-lane `register_frame_vfm` calls, one line per
+  entry and `registration.vfm_icp.VFM_STEPS_PER_READ` value, the values
+  run in turns, with the phase-1 reads and steps of each call; driver:
+  the row's own stage clock under VFMREG_PROFILE_DRIVER=1, with the GN
+  iterations of each ICP row and, per ICP row, its loop's kernel B2 step
+  calls, device reads, kernel B3 launches and per-lane iterations and
+  rebuilds; with `--steps-per-read 1,4,16` one such line per value of
   `registration.icp.GN_STEPS_PER_READ`, the values run in turns; node: the
-  node's own stage clock and the kernels' launches per scene; descriptor: the
-  whole pass, then its images and its ViT features timed apart, and the
+  node's own stage clock, the kernels' launches and the TEASER solves' GNC
+  steps per scene; descriptor: the whole pass, then its images and its ViT features timed apart, and the
   rest, projection, sampling and dedupe, as the difference; odometry: per
   frame, the median and p90 seconds of each stage of `run_odometry`, and
   frames per second, then the seconds of each free-running run of the same
@@ -78,8 +83,7 @@ from vfmreg_tpu_torch.pipeline.synthetic import (
     make_synthetic_scene,
     scene_file_layout,
 )
-from vfmreg_tpu_torch.registration import icp
-from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
+from vfmreg_tpu_torch.registration import icp, teaser, vfm_icp
 from vfmreg_tpu_torch.scan_to_map import (
     KERNEL,
     MAP_VOXEL_SIZE,
@@ -153,6 +157,60 @@ def _driver(reps, dev, steps_per_read):
     return run
 
 
+def _vfm(reps, dev, steps_per_read, entries):
+    """VFM-ICP alone on the slice's grid and correspondences, for each
+    phase-1 steps-per-read value in turns (None: the module's): the batch
+    as one lane loop (`lanes`) and as B one-lane `register_frame_vfm`
+    calls (`one_lane`), seconds summed over `reps` runs; returns one call
+    of the first entry at the first value."""
+    scene = shared_map_batch(8, 524288, 16384, 384, seed=0)
+    mp, mf, sp, sf = (torch.from_numpy(a).to(dev) for a in scene[:4])
+    sm = torch.ones(sp.shape[:2], dtype=torch.bool, device=dev)
+    grid = build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf)
+    corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, *vfm_queries(sp, sf, sm, 512))
+    eye = torch.eye(4)
+    b = sp.shape[0]
+
+    def lanes():
+        r = vfm_icp.register_frames_vfm_lanes(grid, sp, sm, corrs, eye.expand(b, 4, 4),
+                                              MAX_CORRESPONDENCE_DISTANCE, KERNEL)
+        return r.vfm_iterations.tolist(), r.iterations.tolist(), [dict(r.loop)]
+
+    def one_lane():
+        rs = [vfm_icp.register_frame_vfm(grid, sp[j], sm[j], corrs.lane(j), eye, MAX_CORRESPONDENCE_DISTANCE,
+                                         KERNEL) for j in range(b)]
+        return [r.vfm_iterations for r in rs], [r.iterations for r in rs], [dict(r.loop) for r in rs]
+
+    runs = {"lanes": lanes, "one_lane": one_lane}
+
+    def at(k, entry):
+        if k is None:
+            return runs[entry]()
+        kept, vfm_icp.VFM_STEPS_PER_READ = vfm_icp.VFM_STEPS_PER_READ, k
+        try:
+            return runs[entry]()
+        finally:
+            vfm_icp.VFM_STEPS_PER_READ = kept
+
+    for entry in entries:  # warm-up
+        at(steps_per_read[0], entry)
+    acc = {(k, e): 0.0 for k in steps_per_read for e in entries}
+    last = {}
+    for _ in range(reps):
+        for k in steps_per_read:
+            for e in entries:
+                t0 = time.perf_counter()
+                last[k, e] = at(k, e)
+                torch.cuda.synchronize()
+                acc[k, e] += time.perf_counter() - t0
+    for (k, e), seconds in acc.items():
+        vfm_it, it, loops = last[k, e]
+        print(json.dumps({"vfm_steps_per_read": k, "entry": e, "seconds": seconds, "reps": reps,
+                          "vfm_iterations": vfm_it, "iterations": it, "loops": loops,
+                          "device": torch.cuda.get_device_name(0)}))
+    return lambda: at(steps_per_read[0], entries[0])
+
+
 def _node(reps, dev):
     """The scene loop's stage clock over `reps` runs of `run_scene`; returns
     one run. The node's printing goes to a buffer."""
@@ -170,10 +228,12 @@ def _node(reps, dev):
     acc = {}
     for _ in range(reps):
         _build.reset_launches()
+        teaser.GNC_STEPS.clear()
         run()
         for key, v in node.stage_seconds.items():
             acc[key] = acc.get(key, 0.0) + v
     print(json.dumps({"stages": acc, "total": sum(acc.values()), "launches_per_scene": dict(_build.LAUNCHES),
+                      "gnc_per_scene": dict(teaser.GNC_STEPS),
                       "serial_vfm_searches_per_scene": node.vfm_searches // (reps + 1), "reps": reps,
                       "device": torch.cuda.get_device_name(0)}))
     return run
@@ -335,7 +395,7 @@ def _odometry(reps, dev, n_frames):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=["slice", "driver", "node", "descriptor", "odometry", "train"],
+    ap.add_argument("--path", choices=["slice", "vfm", "driver", "node", "descriptor", "odometry", "train"],
                     default="slice")
     ap.add_argument("--frames", type=int, default=60, help="odometry: frames of the drive per run")
     ap.add_argument("--reps", type=int, default=3)
@@ -343,6 +403,10 @@ def main(argv=None):
     ap.add_argument("--steps-per-read", default="",
                     help="driver: comma-separated GN_STEPS_PER_READ values to time in turns "
                          "(default: the module's; the profile runs at the first)")
+    ap.add_argument("--vfm-steps-per-read", default="",
+                    help="vfm: comma-separated VFM_STEPS_PER_READ values to time in turns (default: the module's)")
+    ap.add_argument("--entries", default="lanes,one_lane",
+                    help="vfm: which of lanes,one_lane to time (the profile runs the first)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(None)
@@ -351,6 +415,10 @@ def main(argv=None):
         steps = [int(k) for k in args.steps_per_read.split(",")] if args.steps_per_read else [
             icp.GN_STEPS_PER_READ]
         _profile(_driver(args.reps, dev, steps), args.top)
+        return
+    if args.path == "vfm":
+        steps = [int(k) for k in args.vfm_steps_per_read.split(",")] if args.vfm_steps_per_read else [None]
+        _profile(_vfm(args.reps, dev, steps, args.entries.split(",")), args.top)
         return
     if args.path == "node":
         _profile(_node(args.reps, dev), args.top)
@@ -371,16 +439,17 @@ def main(argv=None):
     torch.cuda.synchronize()
 
     acc = {}
-    eye = torch.eye(4)
+    eye = torch.eye(4).expand(sp.shape[0], 4, 4)
     for _ in range(args.reps):
         grid = _timed(acc, "grid_build", lambda: build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf))
         p5, f5, m5 = _timed(acc, "voxelize_5m", lambda: vfm_queries(sp, sf, sm, 512))
         corrs = _timed(acc, "matching", lambda: get_vfm_correspondences_batched(
             grid.points, grid.feats, grid.valid, p5, f5, m5))
-        for i in range(sp.shape[0]):
-            _timed(acc, "vfm_icp_lanes", lambda: register_frame_vfm(
-                grid, sp[i], sm[i], corrs.lane(i), eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL))
-    print(json.dumps({"stages": acc, "reps": args.reps, "device": torch.cuda.get_device_name(0)}))
+        lanes = _timed(acc, "vfm_icp_lanes", lambda: vfm_icp.register_frames_vfm_lanes(
+            grid, sp, sm, corrs, eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL))
+    print(json.dumps({"stages": acc, "reps": args.reps, "device": torch.cuda.get_device_name(0),
+                      "vfm_iterations": lanes.vfm_iterations.tolist(), "iterations": lanes.iterations.tolist(),
+                      "vfm_icp_loop": dict(lanes.loop)}))
     _profile(lambda: scan_to_map(mp, mf, sp, sf, device=dev), args.top)
 
 

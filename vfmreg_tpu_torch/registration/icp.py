@@ -1,8 +1,9 @@
 """Point-to-point Gauss-Newton ICP against the voxel hash grid, all lanes of a row in lockstep.
 
 Counterpart of the scan-to-map parts of `vfmreg_tpu/registration/icp.py`:
-`build_linear_system` (`:83`), the unrolled `_cholesky_solve6` (`:111`),
-`gn_step` (`:141`), `geometric_icp_loop` (`:159`) with the reference's
+`build_linear_system` (`:83`), `gn_step` (`:141`, with the unrolled
+`_cholesky_solve6` of `:111`) over lanes as `gn_solve_lanes`,
+`geometric_icp_loop` (`:159`) with the reference's
 "planes" champion rebuild on every path (kernel B3), and the entry point
 `register_frame_icp_stats` (`:478`, through `_register_frame_icp_state`,
 `:396`), `register_frame_icp` (`:443`, its `.pose`) and the XD path's
@@ -29,20 +30,20 @@ reference's cosine-weighted champions (`ops.hash_grid.candidate_weights`,
 computes outside its Pallas kernels: plain PyTorch on the lanes' device,
 with the same rounds, reads and lane state, and no launch of B2 or B3.
 
-`gn_step` keeps the per-lane host solve for VFM-ICP's phase 1
-(`registration/vfm_icp.py`).
+VFM-ICP's phase 1 (`registration/vfm_icp.py`) steps its lanes on the
+device with `build_linear_system` and `gn_solve_lanes`.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from vfmreg_tpu_torch.geometry.se3 import hat_so3, transform_points
+from vfmreg_tpu_torch.geometry.se3 import hat_so3, transform_points, transform_points_lanes
 from vfmreg_tpu_torch.ops.champion_kernel import champions_from_planes_lanes, new_champion_buffer
 from vfmreg_tpu_torch.ops.gn_kernel import (
     CONF,
@@ -55,6 +56,7 @@ from vfmreg_tpu_torch.ops.gn_kernel import (
     REBUILD,
     REBUILDS,
     REBUILT,
+    _cholesky_solve6_lanes,
     gn_finish_lanes_plain,
     gn_step_lanes,
     lanes_live,
@@ -104,10 +106,6 @@ def recording_loops():
         _LOOP_LOGS[:] = [other for other in _LOOP_LOGS if other is not log]
 
 
-_f32 = np.float32
-_Z = np.float32(0.0)  # f32 start value of the unrolled sums
-
-
 def build_linear_system(source, target, weight_mask, kernel, center):
     """Masked robust normal equations centred at `center`:
     (JTJ [6,6], JTr [6], n_corr) with J_i = [I | -hat(s_i - c)] and the
@@ -127,43 +125,20 @@ def build_linear_system(source, target, weight_mask, kernel, center):
     return JTJ, JTr, weight_mask.sum()
 
 
-def _cholesky_solve6(A: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Unrolled 6x6 SPD Cholesky solve in float32, in the reference's order
-    of operations (a library Cholesky rounds differently, and the iteration
-    counts hinge on |dx| < 1e-4)."""
-    A = [[_f32(v) for v in r] for r in A]
-    b = [_f32(v) for v in b]
-    n = 6
-    L = [[None] * n for _ in range(n)]
-    for j in range(n):
-        d = A[j][j] - sum((L[j][k] * L[j][k] for k in range(j)), _Z)
-        L[j][j] = np.sqrt(d)
-        for i in range(j + 1, n):
-            s = A[i][j] - sum((L[i][k] * L[j][k] for k in range(j)), _Z)
-            L[i][j] = s / L[j][j]
-    y = [None] * n
-    for i in range(n):
-        y[i] = (b[i] - sum((L[i][k] * y[k] for k in range(i)), _Z)) / L[i][i]
-    x = [None] * n
-    for i in reversed(range(n)):
-        x[i] = (y[i] - sum((L[k][i] * x[k] for k in range(i + 1, n)), _Z)) / L[i][i]
-    return np.array(x, dtype=np.float32)
-
-
-def gn_step(JTJ: torch.Tensor, JTr: torch.Tensor, n_corr: torch.Tensor) -> Tuple[np.ndarray, int]:
-    """Solve JTJ dx = -JTr on the host: (dx, n_corr), with dx zero when the
-    system is empty or singular. One device-to-host read brings the system
-    and the count. A 1e-8 Tikhonov floor keeps the f32 solve finite."""
-    host = torch.cat(
-        [JTJ.reshape(-1), JTr.reshape(-1), n_corr.reshape(1).to(JTJ.dtype)]
-    ).cpu().numpy()
-    n = int(host[42])
-    A = host[:36].reshape(6, 6) + _f32(1e-8) * np.eye(6, dtype=np.float32)
-    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
-        dx = _cholesky_solve6(A, -host[36:42])
-    if n > 0 and np.all(np.isfinite(dx)):
-        return dx, n
-    return np.zeros(6, dtype=np.float32), n
+def gn_solve_lanes(JTJ: torch.Tensor, JTr: torch.Tensor, n_corr: torch.Tensor) -> torch.Tensor:
+    """The reference's `gn_step` (`:141`) on B lanes at once, on the systems'
+    device: JTJ [B, 6, 6], JTr [B, 6], n_corr [B] -> dx [B, 6] solving
+    (JTJ + 1e-8 I) dx = -JTr by the unrolled Cholesky
+    (`ops.gn_kernel._cholesky_solve6_lanes`, the reference's order of
+    operations: a library Cholesky rounds differently, and the iteration
+    counts hinge on |dx| < 1e-4), zero where the lane's system is empty or
+    the solve is not finite. Elementwise over the lanes: no read."""
+    eye = torch.eye(6, dtype=JTJ.dtype, device=JTJ.device)
+    A = JTJ + 1e-8 * eye
+    x = _cholesky_solve6_lanes([[A[:, i, j] for j in range(6)] for i in range(6)],
+                               [-JTr[:, i] for i in range(6)])
+    ok = (n_corr > 0) & torch.isfinite(x).all(dim=1)
+    return torch.where(ok[:, None], x, 0.0)
 
 
 def champion_group(grid: HashGrid) -> int:
@@ -209,8 +184,7 @@ def _gn_step_lanes_weighted(champs: torch.Tensor, source: torch.Tensor, mask: to
         r2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
         m.append(moment_terms(source[j], nbr, r2, found & (dist < max_dist), k, center[j]).sum(dim=1))
     gn_finish_lanes_plain(torch.stack(m), st, center, live, threshold, refresh_interval)
-    for j in range(source.shape[0]):
-        source[j] = torch.where(live[j], transform_points(source[j], st.est[j]), source[j])
+    source.copy_(torch.where(live[:, None, None], transform_points_lanes(source, st.est), source))
 
 
 class ICPLanes(NamedTuple):

@@ -13,11 +13,13 @@ In the exact form the consistency graph and the maximum clique are host
 work, as in the reference (numpy, `registration.max_clique`). The solve on the clique runs
 on the given device with `procrustes.weighted_kabsch`. The reference's GNC
 loop stops once the cost changes by at most `cost_threshold` or after
-`max_iters` steps; here it takes its `max_iters` steps on the device with a
-`live` flag that freezes R, w, mu and the costs once the stop condition
-holds, so no step reads the device and a frozen step changes nothing: the
-result equals the stopped loop's. Scalars are f32 tensors, as the
-reference's jitted solve takes them.
+`max_iters` steps. Here each step carries a `live` flag that freezes R, w,
+mu and the costs once the stop condition holds, so no step reads the device
+and a frozen step changes nothing; the host reads the flag once every
+`GNC_STEPS_PER_READ` steps and stops when it is false. The result equals
+the stopped loop's, and the steps taken are its stop count rounded up to
+the chunk (at most `max_iters`), counted in `GNC_STEPS`. Scalars are f32
+tensors, as the reference's jitted solve takes them.
 
 The greedy form peels the graph three times (degree below half the
 largest), grows a clique from each of the 8 highest-degree nodes by adding
@@ -29,6 +31,7 @@ further step would change nothing.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -38,6 +41,14 @@ from vfmreg_tpu_torch.registration.max_clique import max_clique
 from vfmreg_tpu_torch.registration.procrustes import weighted_kabsch
 from vfmreg_tpu_torch.utils.device import resolve_device
 from vfmreg_tpu_torch.utils.precision import full_precision
+
+
+# GNC steps between two reads of the live flag; a solve launches its stop
+# count rounded up to this.
+GNC_STEPS_PER_READ = 8
+# The GNC-TLS solves run and the steps they launched, as `ops._build.LAUNCHES`
+# counts kernels: "solves", "steps".
+GNC_STEPS: collections.Counter = collections.Counter()
 
 
 class TeaserResult(NamedTuple):
@@ -124,14 +135,22 @@ def _gnc_tls_rotation(a, b, w_mask, noise_bound, cbar2, gnc_factor, max_iters: i
     w = w_mask.to(torch.float32)
     prev_cost = torch.tensor(float("inf"), device=a.device)
     cost = torch.tensor(0.0, device=a.device)
-    for _ in range(max_iters):
-        live = torch.abs(cost - prev_cost) > cost_threshold
-        R_new, w_new, cost_new = _gnc_step(a, b, w_mask, R, mu, eps2, cbar2)
-        R = torch.where(live, R_new, R)
-        w = torch.where(live, w_new, w)
-        mu = torch.where(live, mu * gnc_factor, mu)
-        prev_cost = torch.where(live, cost, prev_cost)
-        cost = torch.where(live, cost_new, cost)
+    GNC_STEPS["solves"] += 1
+    taken = 0
+    while taken < max_iters:
+        chunk = min(GNC_STEPS_PER_READ, max_iters - taken)
+        for _ in range(chunk):
+            live = torch.abs(cost - prev_cost) > cost_threshold
+            R_new, w_new, cost_new = _gnc_step(a, b, w_mask, R, mu, eps2, cbar2)
+            R = torch.where(live, R_new, R)
+            w = torch.where(live, w_new, w)
+            mu = torch.where(live, mu * gnc_factor, mu)
+            prev_cost = torch.where(live, cost, prev_cost)
+            cost = torch.where(live, cost_new, cost)
+        taken += chunk
+        GNC_STEPS["steps"] += chunk
+        if not bool(torch.abs(cost - prev_cost) > cost_threshold):
+            break
     return R, w
 
 

@@ -3,9 +3,11 @@
 Counterpart of `bench.py:_run_workload` (`:86-153`), staged the same way:
 build the voxel hash grid of the map once, voxelize each scan at 5 m and keep
 `n_vfm` queries, match the flattened batch against the map descriptors in one
-cosine arg-max (kernel B1), then register each scan with VFM-ICP (kernel B3
-in every champion rebuild and kernel B2 in every GN step of its geometric
-phase, which runs as a one-lane `registration.icp.geometric_icp_loop`).
+cosine arg-max (kernel B1), then register the scans with VFM-ICP as lanes
+of one loop, as the reference vmaps `register_frame_vfm`
+(`registration.vfm_icp.register_frames_vfm_lanes`: phase 1 on the device,
+phase 2 one `registration.icp.geometric_icp_loop_lanes` over the batch, with
+kernel B3 in every champion rebuild and kernel B2 in every GN step).
 
 `shared_map_batch` is a copy of `bench.py:_shared_map_batch` (`:46-83`) with
 the same seed semantics, which also returns each scan's true pose.
@@ -30,7 +32,7 @@ from vfmreg_tpu_torch.ops.hash_grid import HashGrid, build_hash_grid
 from vfmreg_tpu_torch.ops.matching import get_vfm_correspondences_batched
 from vfmreg_tpu_torch.ops.voxel import voxel_down_sample_masked
 from vfmreg_tpu_torch.registration.icp import MAX_NUM_ITERATIONS
-from vfmreg_tpu_torch.registration.vfm_icp import register_frame_vfm
+from vfmreg_tpu_torch.registration.vfm_icp import register_frames_vfm_lanes
 from vfmreg_tpu_torch.utils.device import resolve_device
 from vfmreg_tpu_torch.utils.precision import full_precision
 
@@ -96,8 +98,8 @@ class ScanToMapResult(NamedTuple):
     iterations: np.ndarray  # [B] all GN iterations (phase 2 = the difference)
     n_correspondences: np.ndarray  # [B] accepted cosine correspondences
     rebuilds: np.ndarray  # [B] phase 2's champion-cache rebuilds
-    # Phase 2's loop counts summed over the scans
-    # (`registration.icp.ICPLanes.loop`: B2 step calls, reads, B3 launches).
+    # The lane loop's counts (`registration.vfm_icp.VFMLanes.loop`: phase 1's
+    # steps and reads; phase 2's B2 step calls, reads, B3 launches).
     loop: collections.Counter
 
 
@@ -131,22 +133,11 @@ def scan_to_map(
     p5, f5, m5 = vfm_queries(sp, sf, sm, n_vfm)
     corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, p5, f5, m5)
 
-    eye = torch.eye(4, dtype=torch.float32)
-    poses, it1, it, n_corr, rebuilds = [], [], [], [], []
-    loop = collections.Counter()
-    for i in range(b):
-        res = register_frame_vfm(
-            grid, sp[i], sm[i], corrs.lane(i), eye,
-            MAX_CORRESPONDENCE_DISTANCE, KERNEL, max_iterations=max_iterations,
-        )
-        poses.append(res.pose.numpy())
-        it1.append(res.vfm_iterations)
-        it.append(res.iterations)
-        n_corr.append(int(corrs.mask[i].sum()))
-        rebuilds.append(res.rebuilds)
-        loop.update(res.loop)
-    return ScanToMapResult(np.stack(poses), np.array(it1), np.array(it), np.array(n_corr),
-                           np.array(rebuilds), loop)
+    eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
+    res = register_frames_vfm_lanes(grid, sp, sm, corrs, eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL,
+                                    max_iterations=max_iterations)
+    return ScanToMapResult(res.poses.numpy(), res.vfm_iterations, res.iterations,
+                           corrs.count.cpu().numpy(), res.rebuilds, res.loop)
 
 
 def main(argv=None):
