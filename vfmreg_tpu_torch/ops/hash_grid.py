@@ -26,6 +26,7 @@ import torch
 
 from vfmreg_tpu_torch.ops.nn_kernel import nn_argmin
 from vfmreg_tpu_torch.ops.voxel import INVALID_HASH, bucket_size, int32_view, voxel_coords, voxel_hash
+from vfmreg_tpu_torch.utils.profiling import span
 
 # Linear-probe budget of the table: one packed row of 8 slots covers 7 probe
 # positions from an odd base slot.
@@ -67,109 +68,110 @@ def build_hash_grid(
     point lies farther than `max_distance` from the origin goes whole
     (`RemovePointsFarFromLocation`): its count is 0 in the table and its rows
     are invalid. Runs where `points` lives."""
-    n = points.shape[0]
-    dev = points.device
-    if mask is None:
-        mask = torch.ones(n, dtype=torch.bool, device=dev)
+    with span("grid_build"):
+        n = points.shape[0]
+        dev = points.device
+        if mask is None:
+            mask = torch.ones(n, dtype=torch.bool, device=dev)
 
-    h = torch.where(mask, voxel_hash(voxel_coords(points, voxel_size)), INVALID_HASH)
-    order = torch.sort(h, stable=True).indices
-    h_s = h[order]
-    pts_s = points[order]
-    mask_s = mask[order]
-    feats_s = feats[order] if feats is not None else None
+        h = torch.where(mask, voxel_hash(voxel_coords(points, voxel_size)), INVALID_HASH)
+        order = torch.sort(h, stable=True).indices
+        h_s = h[order]
+        pts_s = points[order]
+        mask_s = mask[order]
+        feats_s = feats[order] if feats is not None else None
 
-    first = torch.ones(1, dtype=torch.bool, device=dev)
-    is_start = torch.cat([first, h_s[1:] != h_s[:-1]]) & mask_s
+        first = torch.ones(1, dtype=torch.bool, device=dev)
+        is_start = torch.cat([first, h_s[1:] != h_s[:-1]]) & mask_s
 
-    # CSR from scans: each point's bucket start is the last run start at or
-    # before it (running max), its end the next run start after it (running
-    # min from the right).
-    row = torch.arange(n, dtype=torch.int64, device=dev)
-    start_pp = torch.cummax(torch.where(is_start, row, -1), dim=0).values
-    nxt = torch.flip(
-        torch.cummin(torch.flip(torch.where(is_start, row, n), [0]), dim=0).values, [0]
-    )
-    end_pp = torch.cat([nxt[1:], torch.full((1,), n, dtype=torch.int64, device=dev)])
-    count_pp = torch.clamp(end_pp - start_pp, max=max_points_per_voxel)
+        # CSR from scans: each point's bucket start is the last run start at or
+        # before it (running max), its end the next run start after it (running
+        # min from the right).
+        row = torch.arange(n, dtype=torch.int64, device=dev)
+        start_pp = torch.cummax(torch.where(is_start, row, -1), dim=0).values
+        nxt = torch.flip(
+            torch.cummin(torch.flip(torch.where(is_start, row, n), [0]), dim=0).values, [0]
+        )
+        end_pp = torch.cat([nxt[1:], torch.full((1,), n, dtype=torch.int64, device=dev)])
+        count_pp = torch.clamp(end_pp - start_pp, max=max_points_per_voxel)
 
-    evict_pt = torch.zeros(n, dtype=torch.bool, device=dev)
-    if evict_origin is not None:
-        # Each point's bucket's first point; d2 summed as numpy sums three
-        # terms, ((x^2 + y^2) + z^2), so that the host map evicts the same
-        # voxels at the boundary.
-        d = pts_s[start_pp.clamp(0, n - 1)] - evict_origin.to(dev, torch.float32)
-        d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
-        max_d2 = torch.tensor(max_distance, dtype=torch.float32, device=dev) ** 2
-        evict_pt = (d2 > max_d2) & mask_s
-        count_pp = torch.where(evict_pt, 0, count_pp)
+        evict_pt = torch.zeros(n, dtype=torch.bool, device=dev)
+        if evict_origin is not None:
+            # Each point's bucket's first point; d2 summed as numpy sums three
+            # terms, ((x^2 + y^2) + z^2), so that the host map evicts the same
+            # voxels at the boundary.
+            d = pts_s[start_pp.clamp(0, n - 1)] - evict_origin.to(dev, torch.float32)
+            d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+            max_d2 = torch.tensor(max_distance, dtype=torch.float32, device=dev) ** 2
+            evict_pt = (d2 > max_d2) & mask_s
+            count_pp = torch.where(evict_pt, 0, count_pp)
 
-    rank = row - start_pp
-    valid = mask_s & (rank < max_points_per_voxel) & ~evict_pt
+        rank = row - start_pp
+        valid = mask_s & (rank < max_points_per_voxel) & ~evict_pt
 
-    # ----- bucket-aligned slab store --------------------------------------
-    # Two all-sentinel rows at the end: row n*S is the empty slab that absent
-    # voxels redirect to; row n*S+1 takes the writes of rows that are not
-    # stored. Several points land on that write-off row, and on CUDA
-    # `index_put_` with duplicate indices writes in no fixed order; that is
-    # harmless only because nothing ever reads the row.
-    S = -(-max_points_per_voxel // _SLAB)
-    bucket_id = torch.cumsum(is_start.to(torch.int64), dim=0) - 1
-    n_rows = n * S + 2
-    slab_ok = valid & (bucket_id >= 0)
-    flat0 = torch.where(
-        slab_ok,
-        (bucket_id * S + rank // _SLAB) * 128 + rank % _SLAB,
-        (n_rows - 1) * 128,
-    )
-    slab = torch.full((n_rows * 128,), INVALID_COORD, dtype=torch.float32, device=dev)
-    slab[flat0] = pts_s[:, 0]
-    slab[flat0 + 32] = pts_s[:, 1]
-    slab[flat0 + 64] = pts_s[:, 2]
-    # Row ids as f32: exact below 2^24 rows.
-    slab[flat0 + 96] = row.to(torch.float32)
-    bucket_slab = slab.reshape(n_rows, 128)
+        # ----- bucket-aligned slab store --------------------------------------
+        # Two all-sentinel rows at the end: row n*S is the empty slab that absent
+        # voxels redirect to; row n*S+1 takes the writes of rows that are not
+        # stored. Several points land on that write-off row, and on CUDA
+        # `index_put_` with duplicate indices writes in no fixed order; that is
+        # harmless only because nothing ever reads the row.
+        S = -(-max_points_per_voxel // _SLAB)
+        bucket_id = torch.cumsum(is_start.to(torch.int64), dim=0) - 1
+        n_rows = n * S + 2
+        slab_ok = valid & (bucket_id >= 0)
+        flat0 = torch.where(
+            slab_ok,
+            (bucket_id * S + rank // _SLAB) * 128 + rank % _SLAB,
+            (n_rows - 1) * 128,
+        )
+        slab = torch.full((n_rows * 128,), INVALID_COORD, dtype=torch.float32, device=dev)
+        slab[flat0] = pts_s[:, 0]
+        slab[flat0 + 32] = pts_s[:, 1]
+        slab[flat0 + 64] = pts_s[:, 2]
+        # Row ids as f32: exact below 2^24 rows.
+        slab[flat0 + 96] = row.to(torch.float32)
+        bucket_slab = slab.reshape(n_rows, 128)
 
-    # ----- open-addressing table over the bucket set -----------------------
-    # Linear probing without insert rounds: sort the buckets by base slot;
-    # the parking-function identity then places bucket k at
-    # k + cummax(base - k). Buckets pushed past the probe window or the table
-    # end are dropped (unreachable), as in the reference.
-    H = 1
-    while H < 4 * n:
-        H *= 2
-    base = h_s & (H - 1)
-    key2 = torch.where(is_start, base, H)  # non-starts sort last
-    order2 = torch.sort(key2, stable=True).indices
-    bs = key2[order2]
-    placed = row + torch.cummax(bs - row, dim=0).values
-    ok = (bs < H) & (placed - bs < _PROBES) & (placed < H)
-    slot = torch.where(ok, placed, H)  # slot H: write-off row, cut below
+        # ----- open-addressing table over the bucket set -----------------------
+        # Linear probing without insert rounds: sort the buckets by base slot;
+        # the parking-function identity then places bucket k at
+        # k + cummax(base - k). Buckets pushed past the probe window or the table
+        # end are dropped (unreachable), as in the reference.
+        H = 1
+        while H < 4 * n:
+            H *= 2
+        base = h_s & (H - 1)
+        key2 = torch.where(is_start, base, H)  # non-starts sort last
+        order2 = torch.sort(key2, stable=True).indices
+        bs = key2[order2]
+        placed = row + torch.cummax(bs - row, dim=0).values
+        ok = (bs < H) & (placed - bs < _PROBES) & (placed < H)
+        slot = torch.where(ok, placed, H)  # slot H: write-off row, cut below
 
-    vals = torch.stack(
-        [int32_view(h_s[order2]), bucket_id[order2].to(torch.int32), count_pp[order2].to(torch.int32)],
-        dim=1,
-    )
-    table3 = torch.zeros((H + 1, 3), dtype=torch.int32, device=dev)
-    table3[:, 0] = -1  # int32 view of INVALID_HASH
-    table3[slot] = vals
+        vals = torch.stack(
+            [int32_view(h_s[order2]), bucket_id[order2].to(torch.int32), count_pp[order2].to(torch.int32)],
+            dim=1,
+        )
+        table3 = torch.zeros((H + 1, 3), dtype=torch.int32, device=dev)
+        table3[:, 0] = -1  # int32 view of INVALID_HASH
+        table3[slot] = vals
 
-    # Pack the probe window: row r = slots 2r .. 2r+7. Tail windows read zero
-    # rows, which cannot false-hit (a hash whose window reaches past H has
-    # nonzero low bits).
-    pad = torch.zeros((6, 3), dtype=torch.int32, device=dev)
-    view = torch.cat([table3[:H], pad]).reshape(H // 2 + 3, 6)
-    table = torch.cat([view[k : H // 2 + k] for k in range(4)], dim=1).contiguous()
+        # Pack the probe window: row r = slots 2r .. 2r+7. Tail windows read zero
+        # rows, which cannot false-hit (a hash whose window reaches past H has
+        # nonzero low bits).
+        pad = torch.zeros((6, 3), dtype=torch.int32, device=dev)
+        view = torch.cat([table3[:H], pad]).reshape(H // 2 + 3, 6)
+        table = torch.cat([view[k : H // 2 + k] for k in range(4)], dim=1).contiguous()
 
-    return HashGrid(
-        table=table,
-        points=pts_s,
-        bucket_slab=bucket_slab,
-        feats=feats_s,
-        valid=valid,
-        voxel_size=float(voxel_size),
-        max_points_per_voxel=max_points_per_voxel,
-    )
+        return HashGrid(
+            table=table,
+            points=pts_s,
+            bucket_slab=bucket_slab,
+            feats=feats_s,
+            valid=valid,
+            voxel_size=float(voxel_size),
+            max_points_per_voxel=max_points_per_voxel,
+        )
 
 
 def extend_hash_grid(

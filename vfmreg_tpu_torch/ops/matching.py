@@ -20,6 +20,7 @@ import torch
 
 from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax
 from vfmreg_tpu_torch.parallel import collectives
+from vfmreg_tpu_torch.utils.profiling import span
 
 _F32_MAX = torch.finfo(torch.float32).max
 
@@ -151,11 +152,12 @@ def get_vfm_correspondences_batched(
     """`get_vfm_correspondences` over B scans sharing one map: the batch is
     flattened into the query axis, so the map descriptors stream from device
     memory once for all B scans. Fields carry a leading [B] axis."""
-    b, n, d = scan_feats.shape
-    best_sim, best_idx = _best_match(scan_feats.reshape(b * n, d), map_feats, map_mask)
-    best_sim = best_sim.reshape(b, n)
-    target = map_points[best_idx.to(torch.int64)].reshape(b, n, 3)
-    return _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity)
+    with span("match"):
+        b, n, d = scan_feats.shape
+        best_sim, best_idx = _best_match(scan_feats.reshape(b * n, d), map_feats, map_mask)
+        best_sim = best_sim.reshape(b, n)
+        target = map_points[best_idx.to(torch.int64)].reshape(b, n, 3)
+        return _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity)
 
 
 def get_vfm_correspondences_map_sharded(

@@ -30,11 +30,15 @@ correspondence counts (which decide the retry and the ICP width), the RANSAC
 poses (for the f64 orthogonalization), and one final read; the re-match and
 retry paths add one read each. The ICP rows read a small vector of lane
 state once per `GN_STEPS_PER_READ` GN steps, because their loops decide on
-the host where the lanes go between steps. `stats["seconds"]` holds the
-row's wall time ("total"). With `VFMREG_PROFILE_DRIVER=1` every stage ends
-with a synchronize on the card, its seconds land under its own key, and the
-row prints the reference's `[profile] driver stage breakdown (s): ...` line:
-the barriers take away the overlap of host and device that the row has
+the host where the lanes go between steps. The call is the span `row`
+(`utils.profiling.span`), and each stage one span inside it: `row.grid_build`,
+`row.preprocess`, `row.match`, `row.snap`, `row.ransac`, `row.gt_refine_icp`,
+`row.vanilla_icp` and `row.final_read`, which together cover the call. Under
+a recording profiler they are marks on its clock. `stats["seconds"]` holds
+the row's wall time ("total"). With `VFMREG_PROFILE_DRIVER=1` the stage
+spans are a stage clock: every stage ends with a synchronize on the card,
+its seconds land under its own key, and the row prints the reference's
+`[profile] driver stage breakdown (s): ...` line: the barriers take away the overlap of host and device that the row has
 without them, so the row's time under the switch is not its time.
 `VFMREG_PROFILE_ICP_ITERS=1` prints each single-device ICP row's lanes'
 iterations and settled flags, and runs the vanilla row as one full-budget
@@ -115,6 +119,7 @@ from vfmreg_tpu_torch.utils.logging import print_msg
 from vfmreg_tpu_torch.utils.hdbscan import hdbscan_labels
 from vfmreg_tpu_torch.utils.pcl import KNeighbors, transform_pcl
 from vfmreg_tpu_torch.utils.precision import full_precision
+from vfmreg_tpu_torch.utils.profiling import Timer, span
 
 RANSAC_HYPOTHESES = 50000  # registration_node.py:319-327
 RETRY_BELOW = 75  # correspondences below which a scan takes the 1 m retry
@@ -246,199 +251,194 @@ def precompute_scene_batched(
     sigma, voxel_size = INITIAL_THRESHOLD, VOXEL_SIZE
     profile = os.environ.get("VFMREG_PROFILE_DRIVER") == "1"
     profile_icp = os.environ.get("VFMREG_PROFILE_ICP_ITERS") == "1"
+    timer = Timer() if profile else None  # the stage spans' clock
 
-    seconds: Dict[str, float] = {}
     t_start = time.perf_counter()
-    clock = [t_start]
+    with span("row"):
+        with span("row.grid_build", timer, dev):
+            poses = np.stack([np.asarray(p, dtype=np.float64) for p in scene["scene_poses"]])
+            b = poses.shape[0]
 
-    def tic(label):
-        if not profile:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        seconds[label] = seconds.get(label, 0.0) + now - clock[0]
-        clock[0] = now
+            stages = ms = hyp = None
+            n_dev = 1
+            if mesh is not None:
+                axis = mesh.mesh_dim_names[0]
+                group = mesh.get_group(axis)
+                n_dev = torch.distributed.get_world_size(group)
+                if map_sharded:
+                    ms = map_sharded_driver_stages(mesh, voxel_size, RANSAC_HYPOTHESES, axis=axis,
+                                                   max_points_per_voxel=MAX_POINTS_PER_VOXEL)
+                else:
+                    stages = sharded_driver_stages(mesh, RANSAC_HYPOTHESES, axis=axis)
+                    hyp = hypothesis_sharded_batched_ransac(mesh, RANSAC_HYPOTHESES, axis=axis)
 
-    poses = np.stack([np.asarray(p, dtype=np.float64) for p in scene["scene_poses"]])
-    b = poses.shape[0]
+            if ms is not None:
+                # This rank's grid over its block of the map's rows, padded to
+                # ceil(bucket / world) x world (reference `:823-840`).
+                lm = torch.as_tensor(local_map, dtype=torch.float32).to(dev)
+                m0 = lm.shape[0]
+                rows = -(-max(bucket_size(max(m0, 1)), n_dev) // n_dev) * n_dev
+                padded = torch.zeros((rows, lm.shape[1]), dtype=torch.float32, device=dev)
+                padded[:m0] = lm
+                valid = torch.arange(rows, device=dev) < m0
+                grid = ms["build"](*(shard_rows(a, mesh, axis) for a in (padded[:, :3], padded[:, 3:], valid)))
+            elif grid is None:
+                grid = build_map_grid(local_map, voxel_size, dev)
 
-    stages = ms = hyp = None
-    n_dev = 1
-    if mesh is not None:
-        axis = mesh.mesh_dim_names[0]
-        group = mesh.get_group(axis)
-        n_dev = torch.distributed.get_world_size(group)
-        if map_sharded:
-            ms = map_sharded_driver_stages(mesh, voxel_size, RANSAC_HYPOTHESES, axis=axis,
-                                           max_points_per_voxel=MAX_POINTS_PER_VOXEL)
-        else:
-            stages = sharded_driver_stages(mesh, RANSAC_HYPOTHESES, axis=axis)
-            hyp = hypothesis_sharded_batched_ransac(mesh, RANSAC_HYPOTHESES, axis=axis)
+        with span("row.preprocess", timer, dev):
+            resident = scene.get("scene_point_clouds_device")
+            if resident is not None:
+                raw, raw_mask = (t.to(dev) for t in resident)
+            else:
+                raw_np, mask_np = stack_scans(scene["scene_point_clouds"], local_map.shape[1])
+                raw, raw_mask = torch.from_numpy(raw_np).to(dev), torch.from_numpy(mask_np).to(dev)
+            p3, f3, m3, counts3_dev, q5x, q5f, q5m, q5_total = _preprocess_scans_device(
+                raw, raw_mask, voxel_size, q_budget=q5_budget
+            )
 
-    if ms is not None:
-        # This rank's grid over its block of the map's rows, padded to
-        # ceil(bucket / world) x world (reference `:823-840`).
-        lm = torch.as_tensor(local_map, dtype=torch.float32).to(dev)
-        m0 = lm.shape[0]
-        rows = -(-max(bucket_size(max(m0, 1)), n_dev) // n_dev) * n_dev
-        padded = torch.zeros((rows, lm.shape[1]), dtype=torch.float32, device=dev)
-        padded[:m0] = lm
-        valid = torch.arange(rows, device=dev) < m0
-        grid = ms["build"](*(shard_rows(a, mesh, axis) for a in (padded[:, :3], padded[:, 3:], valid)))
-    elif grid is None:
-        grid = build_map_grid(local_map, voxel_size, dev)
-    tic("grid_build")
+        with span("row.match", timer, dev):
+            def match(qx, qf, qm) -> VFMCorrespondences:
+                if ms is not None:
+                    return ms["match"](grid, qx, qf, qm)
+                if stages is not None:
+                    corr = stages["match"](grid.points, grid.feats, grid.valid, *_pad_scans((qx, qf, qm), n_dev))
+                    return VFMCorrespondences(*(f[: qx.shape[0]] for f in corr))
+                return get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, qx, qf, qm)
 
-    resident = scene.get("scene_point_clouds_device")
-    if resident is not None:
-        raw, raw_mask = (t.to(dev) for t in resident)
-    else:
-        raw_np, mask_np = stack_scans(scene["scene_point_clouds"], local_map.shape[1])
-        raw, raw_mask = torch.from_numpy(raw_np).to(dev), torch.from_numpy(mask_np).to(dev)
-    p3, f3, m3, counts3_dev, q5x, q5f, q5m, q5_total = _preprocess_scans_device(
-        raw, raw_mask, voxel_size, q_budget=q5_budget
-    )
-    tic("preprocess")
+            # 5 m pass for every scan. Sync 1: the counts that decide the retry, and
+            # the scan survivor counts that set the ICP operand width.
+            corr5 = match(q5x, q5f, q5m)
+            sync1 = torch.stack([corr5.mask.sum(dim=1), counts3_dev, q5_total]).cpu().numpy()
+            counts5, counts3, q5_tot = sync1[0].copy(), sync1[1], sync1[2]
+            W = min(bucket_size(max(int(counts3.max()), 1)), p3.shape[1])
+            s_xyz, s_mask = p3[:, :W], m3[:, :W]
+            scan_sizes = [int(x) for x in counts3]
 
-    def match(qx, qf, qm) -> VFMCorrespondences:
-        if ms is not None:
-            return ms["match"](grid, qx, qf, qm)
-        if stages is not None:
-            corr = stages["match"](grid.points, grid.feats, grid.valid, *_pad_scans((qx, qf, qm), n_dev))
-            return VFMCorrespondences(*(f[: qx.shape[0]] for f in corr))
-        return get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, qx, qf, qm)
+            c_src, c_tgt, c_mask = corr5.source, corr5.target, corr5.mask
+            # Scans with more occupied 5 m voxels than the query budget were matched
+            # on a truncated query set: re-match them at full width.
+            overflow = [j for j in range(b) if int(q5_tot[j]) > q5x.shape[1]]
+            if overflow:
+                print(f"[WARNING] 5 m query budget ({q5x.shape[1]}) exceeded by "
+                      f"{len(overflow)} scan(s); re-matching them at full width")
+                rows_o = torch.tensor(overflow, dtype=torch.int64, device=dev)
+                corr5o = match(*_voxelize_batch(p3[rows_o], m3[rows_o], f3[rows_o], size=5.0))
+                counts5o = corr5o.mask.sum(dim=1).cpu().numpy()
+                for r, j in enumerate(overflow):
+                    counts5[j] = counts5o[r]
+                c_src, c_tgt, c_mask = _replace_corr_rows(c_src, c_tgt, c_mask, corr5o, overflow)
+            retry = [j for j in range(b) if int(counts5[j]) < RETRY_BELOW]
+            corr_counts = [int(x) for x in counts5]
+            if retry:
+                # The reference re-voxelizes the double-voxelized cloud at 1 m. With
+                # an integer voxel size (VOXEL_SIZE = 1 m) every 1 m voxel nests in
+                # one voxel of that cloud, so the pass is the identity and the retry
+                # queries are the cloud itself.
+                rows_r = torch.tensor(retry, dtype=torch.int64, device=dev)
+                corr1 = match(p3[rows_r, :W], f3[rows_r, :W], m3[rows_r, :W])
+                counts1 = corr1.mask.sum(dim=1).cpu().numpy()
+                for r, j in enumerate(retry):
+                    corr_counts[j] = int(counts1[r])
+                c_src, c_tgt, c_mask = _replace_corr_rows(c_src, c_tgt, c_mask, corr1, retry)
 
-    # 5 m pass for every scan. Sync 1: the counts that decide the retry, and
-    # the scan survivor counts that set the ICP operand width.
-    corr5 = match(q5x, q5f, q5m)
-    sync1 = torch.stack([corr5.mask.sum(dim=1), counts3_dev, q5_total]).cpu().numpy()
-    counts5, counts3, q5_tot = sync1[0].copy(), sync1[1], sync1[2]
-    W = min(bucket_size(max(int(counts3.max()), 1)), p3.shape[1])
-    s_xyz, s_mask = p3[:, :W], m3[:, :W]
-    scan_sizes = [int(x) for x in counts3]
+        # Accepted correspondences to the front (stable, so RANSAC's own
+        # compaction sees the same sequence), cut to the smallest bucket.
+        with span("row.snap", timer, dev):
+            Wc = bucket_size(max(max(corr_counts), 1))
+            if Wc < c_mask.shape[1]:
+                order = torch.sort((~c_mask).to(torch.int32), dim=1, stable=True).indices[:, :Wc]
+                c_src = torch.gather(c_src, 1, order[..., None].expand(-1, -1, 3))
+                c_tgt = torch.gather(c_tgt, 1, order[..., None].expand(-1, -1, 3))
+                c_mask = torch.gather(c_mask, 1, order)
+            if ms is not None:
+                snap = ms["snap"](c_src, c_tgt, c_mask, s_xyz, s_mask, grid)
+            elif stages is not None:
+                snap = (a[:b] for a in stages["snap"](*_pad_scans((c_src, c_tgt, c_mask, s_xyz, s_mask), n_dev),
+                                                      grid.points, grid.valid))
+            else:
+                snap = snap_correspondences(c_src, c_tgt, c_mask, s_xyz, s_mask, grid.points, grid.valid)
+            snap_src, snap_tgt, snap_mask = snap
 
-    c_src, c_tgt, c_mask = corr5.source, corr5.target, corr5.mask
-    # Scans with more occupied 5 m voxels than the query budget were matched
-    # on a truncated query set: re-match them at full width.
-    overflow = [j for j in range(b) if int(q5_tot[j]) > q5x.shape[1]]
-    if overflow:
-        print(f"[WARNING] 5 m query budget ({q5x.shape[1]}) exceeded by "
-              f"{len(overflow)} scan(s); re-matching them at full width")
-        rows_o = torch.tensor(overflow, dtype=torch.int64, device=dev)
-        corr5o = match(*_voxelize_batch(p3[rows_o], m3[rows_o], f3[rows_o], size=5.0))
-        counts5o = corr5o.mask.sum(dim=1).cpu().numpy()
-        for r, j in enumerate(overflow):
-            counts5[j] = counts5o[r]
-        c_src, c_tgt, c_mask = _replace_corr_rows(c_src, c_tgt, c_mask, corr5o, overflow)
-    retry = [j for j in range(b) if int(counts5[j]) < RETRY_BELOW]
-    corr_counts = [int(x) for x in counts5]
-    if retry:
-        # The reference re-voxelizes the double-voxelized cloud at 1 m. With
-        # an integer voxel size (VOXEL_SIZE = 1 m) every 1 m voxel nests in
-        # one voxel of that cloud, so the pass is the identity and the retry
-        # queries are the cloud itself.
-        rows_r = torch.tensor(retry, dtype=torch.int64, device=dev)
-        corr1 = match(p3[rows_r, :W], f3[rows_r, :W], m3[rows_r, :W])
-        counts1 = corr1.mask.sum(dim=1).cpu().numpy()
-        for r, j in enumerate(retry):
-            corr_counts[j] = int(counts1[r])
-        c_src, c_tgt, c_mask = _replace_corr_rows(c_src, c_tgt, c_mask, corr1, retry)
-    tic("match")
+        # Sync 2: the RANSAC poses, orthogonalized on the host in f64. Scan j's
+        # hypotheses come from a generator seeded with j (`parallel.mesh
+        # .rank_seed` on each rank where the budget is split).
+        with span("row.ransac", timer, dev):
+            if ms is not None:
+                ransac_dev = ms["ransac"](snap_src, snap_tgt, snap_mask, range(b))
+            elif stages is not None and b >= n_dev:
+                # At least one scan a rank: each rank runs its scans' whole budget.
+                ransac_dev = stages["ransac"](*_pad_scans((snap_src, snap_tgt, snap_mask), n_dev),
+                                              range(b + (-b) % n_dev))[:b]
+            elif hyp is not None:
+                # Fewer scans than ranks: every scan's budget split over the ranks.
+                ransac_dev = hyp(snap_src, snap_tgt, snap_mask, range(b))
+            else:
+                ransac_dev = batched_ransac(snap_src, snap_tgt, snap_mask, seeds=range(b),
+                                            num_hypotheses=RANSAC_HYPOTHESES)
+            ransac_raw = ransac_dev.cpu().numpy().astype(np.float64)
+            ransac_ortho = ransac_raw.copy()
+            for j in range(b):
+                ransac_ortho[j, :3, :3] = orthogonalize(ransac_raw[j, :3, :3])
 
-    # Accepted correspondences to the front (stable, so RANSAC's own
-    # compaction sees the same sequence), cut to the smallest bucket.
-    Wc = bucket_size(max(max(corr_counts), 1))
-    if Wc < c_mask.shape[1]:
-        order = torch.sort((~c_mask).to(torch.int32), dim=1, stable=True).indices[:, :Wc]
-        c_src = torch.gather(c_src, 1, order[..., None].expand(-1, -1, 3))
-        c_tgt = torch.gather(c_tgt, 1, order[..., None].expand(-1, -1, 3))
-        c_mask = torch.gather(c_mask, 1, order)
-    if ms is not None:
-        snap = ms["snap"](c_src, c_tgt, c_mask, s_xyz, s_mask, grid)
-    elif stages is not None:
-        snap = (a[:b] for a in stages["snap"](*_pad_scans((c_src, c_tgt, c_mask, s_xyz, s_mask), n_dev),
-                                              grid.points, grid.valid))
-    else:
-        snap = snap_correspondences(c_src, c_tgt, c_mask, s_xyz, s_mask, grid.points, grid.valid)
-    snap_src, snap_tgt, snap_mask = snap
-    tic("snap")
+        with span("row.gt_refine_icp", timer, dev):
+            def run_icp(guesses, max_dist, kernel, mode="slabs", max_iterations=MAX_NUM_ITERATIONS) -> BatchedICP:
+                """One ICP row over the B scans from `guesses`. `mode` is the
+                reference's rebuild_mode of the row, which it names in its
+                VFMREG_PROFILE_ICP_ITERS line (the port rebuilds by planes in every
+                row)."""
+                g = torch.as_tensor(np.asarray(guesses, dtype=np.float32))
+                if ms is not None:
+                    return ms["icp"](grid, s_xyz, s_mask, g, max_dist, kernel, max_iterations)
+                if stages is not None:
+                    return _first_rows(stages["icp"](grid, *_pad_scans((s_xyz, s_mask, g), n_dev), max_dist, kernel,
+                                                     max_iterations), b)
+                r = batched_icp_stats(grid, s_xyz, s_mask, g, max_dist, kernel, max_iterations)
+                if profile_icp:
+                    print(f"[profile] icp lane iters ({mode}): {r.iterations.tolist()} "
+                          f"settled={r.settled.tolist()}")
+                return r
 
-    # Sync 2: the RANSAC poses, orthogonalized on the host in f64. Scan j's
-    # hypotheses come from a generator seeded with j (`parallel.mesh
-    # .rank_seed` on each rank where the budget is split).
-    if ms is not None:
-        ransac_dev = ms["ransac"](snap_src, snap_tgt, snap_mask, range(b))
-    elif stages is not None and b >= n_dev:
-        # At least one scan a rank: each rank runs its scans' whole budget.
-        ransac_dev = stages["ransac"](*_pad_scans((snap_src, snap_tgt, snap_mask), n_dev),
-                                      range(b + (-b) % n_dev))[:b]
-    elif hyp is not None:
-        # Fewer scans than ranks: every scan's budget split over the ranks.
-        ransac_dev = hyp(snap_src, snap_tgt, snap_mask, range(b))
-    else:
-        ransac_dev = batched_ransac(snap_src, snap_tgt, snap_mask, seeds=range(b),
-                                    num_hypotheses=RANSAC_HYPOTHESES)
-    ransac_raw = ransac_dev.cpu().numpy().astype(np.float64)
-    ransac_ortho = ransac_raw.copy()
-    for j in range(b):
-        ransac_ortho[j, :3, :3] = orthogonalize(ransac_raw[j, :3, :3])
-    tic("ransac")
+            # GT ICP and the refine row: two separate rows at (3 sigma, sigma / 3).
+            gt = run_icp(poses, 3 * sigma, sigma / 3)
+            refined = run_icp(ransac_ortho, 3 * sigma, sigma / 3)
 
-    def run_icp(guesses, max_dist, kernel, mode="slabs", max_iterations=MAX_NUM_ITERATIONS) -> BatchedICP:
-        """One ICP row over the B scans from `guesses`. `mode` is the
-        reference's rebuild_mode of the row, which it names in its
-        VFMREG_PROFILE_ICP_ITERS line (the port rebuilds by planes in every
-        row)."""
-        g = torch.as_tensor(np.asarray(guesses, dtype=np.float32))
-        if ms is not None:
-            return ms["icp"](grid, s_xyz, s_mask, g, max_dist, kernel, max_iterations)
-        if stages is not None:
-            return _first_rows(stages["icp"](grid, *_pad_scans((s_xyz, s_mask, g), n_dev), max_dist, kernel,
-                                             max_iterations), b)
-        r = batched_icp_stats(grid, s_xyz, s_mask, g, max_dist, kernel, max_iterations)
-        if profile_icp:
-            print(f"[profile] icp lane iters ({mode}): {r.iterations.tolist()} settled={r.settled.tolist()}")
-        return r
+        # The vanilla row: two phases, or one full-budget loop in the map-sharded
+        # mode and under the ICP profiler (which needs the full-budget stats).
+        with span("row.vanilla_icp", timer, dev):
+            eye_b = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+            md7, k7 = 7 * sigma, sigma / 7
+            if ms is not None or profile_icp:
+                vanilla = run_icp(eye_b, md7, k7, mode="planes")
+            elif stages is not None:
+                def far_p1(p, m, g):
+                    return _first_rows(stages["icp_planes_p1"](grid, *_pad_scans((p, m, g), n_dev), md7, k7),
+                                       g.shape[0])
 
-    # GT ICP and the refine row: two separate rows at (3 sigma, sigma / 3).
-    gt = run_icp(poses, 3 * sigma, sigma / 3)
-    refined = run_icp(ransac_ortho, 3 * sigma, sigma / 3)
-    tic("gt_refine_icp")
-    # The vanilla row: two phases, or one full-budget loop in the map-sharded
-    # mode and under the ICP profiler (which needs the full-budget stats).
-    eye_b = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
-    md7, k7 = 7 * sigma, sigma / 7
-    if ms is not None or profile_icp:
-        vanilla = run_icp(eye_b, md7, k7, mode="planes")
-    elif stages is not None:
-        def far_p1(p, m, g):
-            return _first_rows(stages["icp_planes_p1"](grid, *_pad_scans((p, m, g), n_dev), md7, k7), g.shape[0])
+                def far_resume(p, m, g):
+                    return stages["icp_planes_resume"](grid, p, m, g, md7, k7)
 
-        def far_resume(p, m, g):
-            return stages["icp_planes_resume"](grid, p, m, g, md7, k7)
+                vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, torch.from_numpy(eye_b), md7, k7,
+                                                stats_fn=far_p1, resume_fn=far_resume, pad_multiple=n_dev)
+            else:
+                vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, eye_b, md7, k7)
 
-        vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, torch.from_numpy(eye_b), md7, k7,
-                                        stats_fn=far_p1, resume_fn=far_resume, pad_multiple=n_dev)
-    else:
-        vanilla = batched_icp_two_phase(grid, s_xyz, s_mask, eye_b, md7, k7)
-    tic("vanilla_icp")
+        # Sync 3: every remaining device result in one read.
+        with span("row.final_read", timer, dev):
+            n_map = grid.valid.sum()[None]
+            if ms is not None:
+                collectives.all_reduce(n_map, SUM, group)
+            final = torch.cat([snap_mask.sum(dim=1), n_map]).cpu().numpy()
+            viz_corr = None
+            if viz:
+                pairs = [t.cpu().numpy() for t in (snap_src, snap_tgt, snap_mask)]
+                viz_corr = [(pairs[0][j][pairs[2][j]], pairs[1][j][pairs[2][j]]) for j in range(b)]
 
-    # Sync 3: every remaining device result in one read.
-    n_map = grid.valid.sum()[None]
-    if ms is not None:
-        collectives.all_reduce(n_map, SUM, group)
-    final = torch.cat([snap_mask.sum(dim=1), n_map]).cpu().numpy()
-    viz_corr = None
-    if viz:
-        pairs = [t.cpu().numpy() for t in (snap_src, snap_tgt, snap_mask)]
-        viz_corr = [(pairs[0][j][pairs[2][j]], pairs[1][j][pairs[2][j]]) for j in range(b)]
-    tic("final_read")
-    seconds["total"] = time.perf_counter() - t_start
-    if profile:
-        print("[profile] driver stage breakdown (s): " + ", ".join(
-            f"{k}={v:.3f}" for k, v in seconds.items() if k != "total")
-            + f" | total={sum(v for k, v in seconds.items() if k != 'total'):.3f}")
+        seconds = {name[len("row."):]: t for name, t in timer.totals.items()} if profile else {}
+        seconds["total"] = time.perf_counter() - t_start
+        if profile:
+            print("[profile] driver stage breakdown (s): " + ", ".join(
+                f"{k}={v:.3f}" for k, v in seconds.items() if k != "total")
+                + f" | total={sum(v for k, v in seconds.items() if k != 'total'):.3f}")
     rows = {"gt": gt, "refine": refined, "icp": vanilla}
     return {
         "gt": gt.poses.numpy().astype(np.float64),

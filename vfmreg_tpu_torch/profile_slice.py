@@ -94,14 +94,7 @@ from vfmreg_tpu_torch.scan_to_map import (
 )
 from vfmreg_tpu_torch.utils.device import resolve_device
 from vfmreg_tpu_torch.utils.precision import full_precision
-
-
-def _timed(acc, key, fn):
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
-    return out
+from vfmreg_tpu_torch.utils.profiling import Timer, span
 
 
 def _driver(reps, dev, steps_per_read):
@@ -250,12 +243,17 @@ def _descriptor(reps, dev):
         return [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
 
     run()  # warm-up
-    acc = {}
+    timer = Timer()
     for _ in range(reps):
-        _timed(acc, "pass", run)
-        images = _timed(acc, "read_images", lambda: [rig.read_images(f) for f in files])
-        _timed(acc, "vit_features", lambda: [gen.get_image_features(im)
-                                             for ims in images for im in ims.values()])
+        with span("pass", timer, dev):
+            run()
+        with span("read_images", timer, dev):
+            images = [rig.read_images(f) for f in files]
+        with span("vit_features", timer, dev):
+            for ims in images:
+                for im in ims.values():
+                    gen.get_image_features(im)
+    acc = dict(timer.totals)
     acc["projection_sampling_dedupe"] = acc["pass"] - acc["read_images"] - acc["vit_features"]
     print(json.dumps({"stages": acc, "images": 8 * len(rig.cameras) * reps, "reps": reps,
                       "device": torch.cuda.get_device_name(0)}))
@@ -265,7 +263,6 @@ def _descriptor(reps, dev):
 def _train(reps, dev):
     """The trainer's stage clock over `reps` steps; returns one step."""
     from vfmreg_tpu_torch.train import trainer as T
-    from vfmreg_tpu_torch.utils.profiling import Timer
 
     cfg = dataclasses.replace(PRESETS["dinov2_vits14"], use_flash_attention=False)
     tcfg = T.TrainConfig()
@@ -438,16 +435,18 @@ def main(argv=None):
     scan_to_map(mp, mf, sp, sf, device=dev)  # warm-up
     torch.cuda.synchronize()
 
-    acc = {}
+    timer = Timer()
     eye = torch.eye(4).expand(sp.shape[0], 4, 4)
     for _ in range(args.reps):
-        grid = _timed(acc, "grid_build", lambda: build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf))
-        p5, f5, m5 = _timed(acc, "voxelize_5m", lambda: vfm_queries(sp, sf, sm, 512))
-        corrs = _timed(acc, "matching", lambda: get_vfm_correspondences_batched(
-            grid.points, grid.feats, grid.valid, p5, f5, m5))
-        lanes = _timed(acc, "vfm_icp_lanes", lambda: vfm_icp.register_frames_vfm_lanes(
-            grid, sp, sm, corrs, eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL))
-    print(json.dumps({"stages": acc, "reps": args.reps, "device": torch.cuda.get_device_name(0),
+        with span("grid_build", timer, dev):
+            grid = build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf)
+        with span("voxelize_5m", timer, dev):
+            p5, f5, m5 = vfm_queries(sp, sf, sm, 512)
+        with span("matching", timer, dev):
+            corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, p5, f5, m5)
+        with span("vfm_icp_lanes", timer, dev):
+            lanes = vfm_icp.register_frames_vfm_lanes(grid, sp, sm, corrs, eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL)
+    print(json.dumps({"stages": dict(timer.totals), "reps": args.reps, "device": torch.cuda.get_device_name(0),
                       "vfm_iterations": lanes.vfm_iterations.tolist(), "iterations": lanes.iterations.tolist(),
                       "vfm_icp_loop": dict(lanes.loop)}))
     _profile(lambda: scan_to_map(mp, mf, sp, sf, device=dev), args.top)

@@ -72,6 +72,7 @@ from vfmreg_tpu_torch.ops.hash_grid import (
     gather_candidate_slabs,
     nn_from_weighted_cache,
 )
+from vfmreg_tpu_torch.utils.profiling import span
 
 MAX_NUM_ITERATIONS = 1000  # Registration.cpp:92
 ESTIMATION_THRESHOLD = 1e-4  # Registration.cpp:93
@@ -251,94 +252,95 @@ def geometric_icp_loop_lanes(
     host acts on them, so every rank gathers, rebuilds and stops the same
     lanes in the same rounds and the ranks' collectives stay paired. The XD
     path refuses it, as the reference does."""
-    if qfeats is not None and merge_cache is not None:
-        raise ValueError("merge_cache is not supported on the XD weighted path")
-    dev = source0.device
-    b, n = source0.shape[:2]
-    f32 = torch.float32
-    source = source0.to(f32).contiguous().clone()  # moved in place
-    mask = mask.contiguous()
-    center = center.to(dev, f32).contiguous()
-    d = source - center[:, None]
-    # Elementwise, so that a lane's lever arm does not depend on its row's width.
-    d2c = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-    r_max = torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0), dim=1))
-    slack = float(np.float32(0.5) * np.float32(grid.voxel_size))
-    st = new_gn_lanes(torch.as_tensor(T_icp0), it0, max_iterations, r_max, slack, n)
-    weighted = qfeats is not None
-    champs = new_champion_buffer(b, n, dev)
-    if weighted:
-        cands, weights = [None] * b, [None] * b  # each lane's epoch: slabs and their weights
-        champs = torch.cat([champs, torch.ones((1, b, 32, n), dtype=f32, device=dev)])
-    else:
-        group = champion_group(grid)
-        planes = torch.empty((3, b, 27 * group, n), dtype=f32, device=dev)
-    flags = torch.zeros(b, dtype=torch.int32, device=dev)
-    flags_host = torch.zeros(b, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    with span("icp.loop"):
+        if qfeats is not None and merge_cache is not None:
+            raise ValueError("merge_cache is not supported on the XD weighted path")
+        dev = source0.device
+        b, n = source0.shape[:2]
+        f32 = torch.float32
+        source = source0.to(f32).contiguous().clone()  # moved in place
+        mask = mask.contiguous()
+        center = center.to(dev, f32).contiguous()
+        d = source - center[:, None]
+        # Elementwise, so that a lane's lever arm does not depend on its row's width.
+        d2c = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+        r_max = torch.sqrt(torch.amax(torch.where(mask, d2c, 0.0), dim=1))
+        slack = float(np.float32(0.5) * np.float32(grid.voxel_size))
+        st = new_gn_lanes(torch.as_tensor(T_icp0), it0, max_iterations, r_max, slack, n)
+        weighted = qfeats is not None
+        champs = new_champion_buffer(b, n, dev)
+        if weighted:
+            cands, weights = [None] * b, [None] * b  # each lane's epoch: slabs and their weights
+            champs = torch.cat([champs, torch.ones((1, b, 32, n), dtype=f32, device=dev)])
+        else:
+            group = champion_group(grid)
+            planes = torch.empty((3, b, 27 * group, n), dtype=f32, device=dev)
+        flags = torch.zeros(b, dtype=torch.int32, device=dev)
+        flags_host = torch.zeros(b, dtype=torch.int32, pin_memory=dev.type == "cuda")
 
-    phase = np.where(np.broadcast_to(it0, (b,)) < max_iterations, GATHER, FINISHED)
-    loop = collections.Counter(step_calls=0, reads=0, rebuild_rounds=0, lane_rebuilds=0,
-                               gather_rounds=0, lane_gathers=0)
-    # Every round advances every unfinished lane by at least one step.
-    max_rounds = int(max_iterations - np.min(it0))
-    ints = None
-    step_champs = champs  # what the GN steps read: the merged cache under `merge_cache`
-    while not (phase == FINISHED).all():
-        if loop["reads"] >= max_rounds:
-            raise RuntimeError(f"ICP lanes made no progress in {max_rounds} rounds: phases {phase.tolist()}")
-        gather = np.flatnonzero(phase == GATHER)
-        rebuild = np.flatnonzero((phase == GATHER) | (phase == REBUILD))
-        if gather.size:
-            if weighted:
-                for j in gather:
-                    cands[j] = gather_candidate_slabs(grid, source[j], mask[j])
-                    weights[j] = candidate_weights(cands[j], grid.feats, qfeats[j])
-            else:
-                _gather_planes(grid, source, mask, gather, group, planes)
-            loop["gather_rounds"] += 1
-            loop["lane_gathers"] += gather.size
-        if rebuild.size:
-            # The previous round's read has synchronised: the pinned buffer is free.
-            fh = flags_host.numpy()
-            fh[:] = 0
-            fh[rebuild] = REBUILT
-            fh[gather] = GATHERED
-            flags.copy_(flags_host, non_blocking=True)
-            if weighted:
-                for j in rebuild:
-                    champs[:, j] = torch.stack(build_weighted_nn_cache(cands[j], weights[j], source[j],
-                                                                       mask[j]))
-            else:
-                champions_from_planes_lanes(planes[0], planes[1], planes[2], source, mask, flags, group,
-                                            champs)
-                if merge_cache is not None:
-                    step_champs = merge_cache(champs)
-            mark_rebuilt(st, flags)
-            loop["rebuild_rounds"] += 1
-            loop["lane_rebuilds"] += rebuild.size
-        for _ in range(GN_STEPS_PER_READ):
-            if weighted:
-                _gn_step_lanes_weighted(champs, source, mask, center, kernel, max_dist,
-                                        estimation_threshold, refresh_interval, st)
-            else:
-                gn_step_lanes(step_champs[0], step_champs[1], step_champs[2], source, center, kernel,
-                              max_dist, estimation_threshold, refresh_interval, st)
-        loop["step_calls"] += GN_STEPS_PER_READ
-        ints = st.ints.cpu().numpy()
+        phase = np.where(np.broadcast_to(it0, (b,)) < max_iterations, GATHER, FINISHED)
+        loop = collections.Counter(step_calls=0, reads=0, rebuild_rounds=0, lane_rebuilds=0,
+                                   gather_rounds=0, lane_gathers=0)
+        # Every round advances every unfinished lane by at least one step.
+        max_rounds = int(max_iterations - np.min(it0))
+        ints = None
+        step_champs = champs  # what the GN steps read: the merged cache under `merge_cache`
+        while not (phase == FINISHED).all():
+            if loop["reads"] >= max_rounds:
+                raise RuntimeError(f"ICP lanes made no progress in {max_rounds} rounds: phases {phase.tolist()}")
+            gather = np.flatnonzero(phase == GATHER)
+            rebuild = np.flatnonzero((phase == GATHER) | (phase == REBUILD))
+            if gather.size:
+                if weighted:
+                    for j in gather:
+                        cands[j] = gather_candidate_slabs(grid, source[j], mask[j])
+                        weights[j] = candidate_weights(cands[j], grid.feats, qfeats[j])
+                else:
+                    _gather_planes(grid, source, mask, gather, group, planes)
+                loop["gather_rounds"] += 1
+                loop["lane_gathers"] += gather.size
+            if rebuild.size:
+                # The previous round's read has synchronised: the pinned buffer is free.
+                fh = flags_host.numpy()
+                fh[:] = 0
+                fh[rebuild] = REBUILT
+                fh[gather] = GATHERED
+                flags.copy_(flags_host, non_blocking=True)
+                if weighted:
+                    for j in rebuild:
+                        champs[:, j] = torch.stack(build_weighted_nn_cache(cands[j], weights[j], source[j],
+                                                                           mask[j]))
+                else:
+                    champions_from_planes_lanes(planes[0], planes[1], planes[2], source, mask, flags, group,
+                                                champs)
+                    if merge_cache is not None:
+                        step_champs = merge_cache(champs)
+                mark_rebuilt(st, flags)
+                loop["rebuild_rounds"] += 1
+                loop["lane_rebuilds"] += rebuild.size
+            for _ in range(GN_STEPS_PER_READ):
+                if weighted:
+                    _gn_step_lanes_weighted(champs, source, mask, center, kernel, max_dist,
+                                            estimation_threshold, refresh_interval, st)
+                else:
+                    gn_step_lanes(step_champs[0], step_champs[1], step_champs[2], source, center, kernel,
+                                  max_dist, estimation_threshold, refresh_interval, st)
+            loop["step_calls"] += GN_STEPS_PER_READ
+            ints = st.ints.cpu().numpy()
+            loop["reads"] += 1
+            phase = ints[:, PHASE]
+            if merge_cache is not None:
+                phase = merge_cache.agree(phase)
+        if ints is None:  # every lane started finished
+            ints = st.ints.cpu().numpy()
+            loop["reads"] += 1
+        T_icp = st.T.cpu()
         loop["reads"] += 1
-        phase = ints[:, PHASE]
-        if merge_cache is not None:
-            phase = merge_cache.agree(phase)
-    if ints is None:  # every lane started finished
-        ints = st.ints.cpu().numpy()
-        loop["reads"] += 1
-    T_icp = st.T.cpu()
-    loop["reads"] += 1
-    for log in _LOOP_LOGS:
-        log.append({"iterations": (ints[:, IT] - np.broadcast_to(it0, (b,))).tolist(),
-                    "rebuilds": ints[:, REBUILDS].tolist(), "loop": dict(loop), "weighted": weighted})
-    return ICPLanes(source, T_icp, ints[:, IT].astype(np.int64), ints[:, DONE] != 0,
-                    ints[:, CONF] != 0, ints[:, REBUILDS].astype(np.int64), loop)
+        for log in _LOOP_LOGS:
+            log.append({"iterations": (ints[:, IT] - np.broadcast_to(it0, (b,))).tolist(),
+                        "rebuilds": ints[:, REBUILDS].tolist(), "loop": dict(loop), "weighted": weighted})
+        return ICPLanes(source, T_icp, ints[:, IT].astype(np.int64), ints[:, DONE] != 0,
+                        ints[:, CONF] != 0, ints[:, REBUILDS].astype(np.int64), loop)
 
 
 class ICPState(NamedTuple):

@@ -47,6 +47,7 @@ from vfmreg_tpu_torch.registration.icp import (
     geometric_icp_loop_lanes,
     gn_solve_lanes,
 )
+from vfmreg_tpu_torch.utils.profiling import span
 
 EUCL_DIST_THRESHOLD = 0.01  # Registration.cpp:94
 MAD_MULTIPLIER = 1.5  # Registration.cpp:320
@@ -106,80 +107,89 @@ def register_frames_vfm_lanes(
     axes, computed from the guess-transformed sources) and initial guesses
     [B, 4, 4] (anywhere). Tensors live on the grid's device. `merge_cache`
     goes to phase 2's loop (map-sharded registration,
-    `registration.icp.geometric_icp_loop_lanes`); phase 1 reads no map."""
-    dev = points.device
-    f32 = torch.float32
-    b = points.shape[0]
-    points = points.to(f32)
-    guesses = torch.as_tensor(initial_guess).to("cpu", f32)
-    source = transform_points_lanes(points, guesses.to(dev))
-    center = torch.stack([torch.where(mask[j][:, None], source[j], 0.0).sum(dim=0) for j in range(b)])
-    center = center / torch.clamp(mask.sum(dim=1), min=1)[:, None]
-    k = torch.full((), kernel, dtype=f32, device=dev)
-    everyone = range(b)
+    `registration.icp.geometric_icp_loop_lanes`); phase 1 reads no map.
 
-    tgt_c = corr.target
-    src_c = corr.source.to(f32)
-    corr_mask = corr.mask
-    prev_mean = _masked_means(torch.sqrt(_sq3(src_c - tgt_c)), corr_mask, everyone)
+    The call is the span `vfm_icp`: `vfm_icp.phase1` (the lanes' set-up and
+    the VFM loop to its last read of the lanes' state), then
+    `vfm_icp.phase2` (the geometric loop and the poses composed after it)."""
+    with span("vfm_icp"):
+        with span("vfm_icp.phase1"):
+            dev = points.device
+            f32 = torch.float32
+            b = points.shape[0]
+            points = points.to(f32)
+            guesses = torch.as_tensor(initial_guess).to("cpu", f32)
+            source = transform_points_lanes(points, guesses.to(dev))
+            center = torch.stack([torch.where(mask[j][:, None], source[j], 0.0).sum(dim=0)
+                                  for j in range(b)])
+            center = center / torch.clamp(mask.sum(dim=1), min=1)[:, None]
+            k = torch.full((), kernel, dtype=f32, device=dev)
+            everyone = range(b)
 
-    # ---------------- Phase 1: VFM loop (`Registration.cpp:253-336`) -------
-    T = torch.eye(4, dtype=f32, device=dev).repeat(b, 1, 1)
-    it = torch.zeros(b, dtype=torch.int32, device=dev)
-    done = corr.count == 0
-    lanes = everyone  # the lanes live at the last read
-    loop = collections.Counter(vfm_steps=0, vfm_reads=0)
-    while True:
-        for _ in range(VFM_STEPS_PER_READ):
-            live = ~done & (it < max_iterations)
-            systems = [build_linear_system(src_c[j], tgt_c[j], corr_mask[j], k, center[j]) if j in lanes
-                       else (src_c.new_zeros((6, 6)), src_c.new_zeros(6), corr_mask.new_zeros((), dtype=torch.int64))
-                       for j in everyone]
-            JTJ, JTr, n_corr = (torch.stack(c) for c in zip(*systems))
-            est = conjugate_translation_lanes(exp_se3_lanes(gn_solve_lanes(JTJ, JTr, n_corr)), center)
-            src_c_new = transform_points_lanes(src_c, est)
-            d = torch.sqrt(_sq3(src_c_new - tgt_c))
-            mean = _masked_means(d, corr_mask, lanes)
-            med, mad = masked_mad(d, corr_mask)
-            mask_new = corr_mask & (torch.abs(d - med[:, None]) < MAD_MULTIPLIER * mad[:, None])
-            stop = (torch.abs(prev_mean - mean) < EUCL_DIST_THRESHOLD) | (n_corr == 0)
+            tgt_c = corr.target
+            src_c = corr.source.to(f32)
+            corr_mask = corr.mask
+            prev_mean = _masked_means(torch.sqrt(_sq3(src_c - tgt_c)), corr_mask, everyone)
 
-            source = torch.where(live[:, None, None], transform_points_lanes(source, est), source)
-            src_c = torch.where(live[:, None, None], src_c_new, src_c)
-            T = torch.where(live[:, None, None], matmul_lanes(est, T), T)
-            corr_mask = torch.where(live[:, None], mask_new, corr_mask)
-            prev_mean = torch.where(live, mean, prev_mean)
-            done = torch.where(live, stop, done)
-            it = it + live.to(torch.int32)
-        loop["vfm_steps"] += VFM_STEPS_PER_READ
-        state = torch.cat([T.reshape(b, 16), it.to(f32)[:, None],
-                           (~done & (it < max_iterations)).to(f32)[:, None]], dim=1).cpu()
-        loop["vfm_reads"] += 1
-        lanes = np.flatnonzero(state[:, 17].numpy()).tolist()
-        if not lanes:
-            break
-    T_vfm = state[:, :16].reshape(b, 4, 4)
-    it_vfm = state[:, 16].numpy().astype(np.int64)
+            # ---------------- Phase 1: VFM loop (`Registration.cpp:253-336`) ---
+            T = torch.eye(4, dtype=f32, device=dev).repeat(b, 1, 1)
+            it = torch.zeros(b, dtype=torch.int32, device=dev)
+            done = corr.count == 0
+            lanes = everyone  # the lanes live at the last read
+            loop = collections.Counter(vfm_steps=0, vfm_reads=0)
+            while True:
+                for _ in range(VFM_STEPS_PER_READ):
+                    live = ~done & (it < max_iterations)
+                    systems = [build_linear_system(src_c[j], tgt_c[j], corr_mask[j], k, center[j]) if j in lanes
+                               else (src_c.new_zeros((6, 6)), src_c.new_zeros(6),
+                                     corr_mask.new_zeros((), dtype=torch.int64))
+                               for j in everyone]
+                    JTJ, JTr, n_corr = (torch.stack(c) for c in zip(*systems))
+                    est = conjugate_translation_lanes(exp_se3_lanes(gn_solve_lanes(JTJ, JTr, n_corr)), center)
+                    src_c_new = transform_points_lanes(src_c, est)
+                    d = torch.sqrt(_sq3(src_c_new - tgt_c))
+                    mean = _masked_means(d, corr_mask, lanes)
+                    med, mad = masked_mad(d, corr_mask)
+                    mask_new = corr_mask & (torch.abs(d - med[:, None]) < MAD_MULTIPLIER * mad[:, None])
+                    stop = (torch.abs(prev_mean - mean) < EUCL_DIST_THRESHOLD) | (n_corr == 0)
 
-    # ------------- Phase 2: geometric ICP (`Registration.cpp:347-372`) -----
-    s2 = geometric_icp_loop_lanes(
-        grid, source, mask, T, center, max_correspondence_distance, kernel, max_iterations,
-        ESTIMATION_THRESHOLD, it0=it_vfm, merge_cache=merge_cache,
-    )
-    loop.update(s2.loop)
-    # The reference moves the returned correspondence sources along with
-    # phase 2 (`Registration.cpp:365`).
-    motion = torch.stack([s2.T_icp[j] @ inverse_se3(T_vfm[j]) for j in everyone])
-    return VFMLanes(
-        poses=torch.stack([s2.T_icp[j] @ guesses[j] for j in everyone]),
-        src_corr=transform_points_lanes(src_c, motion),
-        tgt_corr=tgt_c,
-        corr_mask=corr_mask,
-        vfm_iterations=it_vfm,
-        iterations=s2.it,
-        rebuilds=s2.rebuilds,
-        loop=loop,
-    )
+                    source = torch.where(live[:, None, None], transform_points_lanes(source, est), source)
+                    src_c = torch.where(live[:, None, None], src_c_new, src_c)
+                    T = torch.where(live[:, None, None], matmul_lanes(est, T), T)
+                    corr_mask = torch.where(live[:, None], mask_new, corr_mask)
+                    prev_mean = torch.where(live, mean, prev_mean)
+                    done = torch.where(live, stop, done)
+                    it = it + live.to(torch.int32)
+                loop["vfm_steps"] += VFM_STEPS_PER_READ
+                state = torch.cat([T.reshape(b, 16), it.to(f32)[:, None],
+                                   (~done & (it < max_iterations)).to(f32)[:, None]], dim=1).cpu()
+                loop["vfm_reads"] += 1
+                lanes = np.flatnonzero(state[:, 17].numpy()).tolist()
+                if not lanes:
+                    break
+            T_vfm = state[:, :16].reshape(b, 4, 4)
+            it_vfm = state[:, 16].numpy().astype(np.int64)
+
+        # ------------- Phase 2: geometric ICP (`Registration.cpp:347-372`) -------
+        with span("vfm_icp.phase2"):
+            s2 = geometric_icp_loop_lanes(
+                grid, source, mask, T, center, max_correspondence_distance, kernel, max_iterations,
+                ESTIMATION_THRESHOLD, it0=it_vfm, merge_cache=merge_cache,
+            )
+            loop.update(s2.loop)
+            # The reference moves the returned correspondence sources along with
+            # phase 2 (`Registration.cpp:365`).
+            motion = torch.stack([s2.T_icp[j] @ inverse_se3(T_vfm[j]) for j in everyone])
+            return VFMLanes(
+                poses=torch.stack([s2.T_icp[j] @ guesses[j] for j in everyone]),
+                src_corr=transform_points_lanes(src_c, motion),
+                tgt_corr=tgt_c,
+                corr_mask=corr_mask,
+                vfm_iterations=it_vfm,
+                iterations=s2.it,
+                rebuilds=s2.rebuilds,
+                loop=loop,
+            )
 
 
 def register_frame_vfm(

@@ -35,6 +35,7 @@ from vfmreg_tpu_torch.registration.icp import MAX_NUM_ITERATIONS
 from vfmreg_tpu_torch.registration.vfm_icp import register_frames_vfm_lanes
 from vfmreg_tpu_torch.utils.device import resolve_device
 from vfmreg_tpu_torch.utils.precision import full_precision
+from vfmreg_tpu_torch.utils.profiling import span
 
 MAP_VOXEL_SIZE = 1.0
 VFM_VOXEL_SIZE = 5.0  # Registration.cpp:217
@@ -83,13 +84,14 @@ def vfm_queries(scans, scan_feats, scan_mask, n_vfm: int):
     """5 m voxelize each scan [B, N, 3] and keep the first `n_vfm`
     representatives: the query set of the cosine matching
     (`Registration.cpp:217`). Returns (points, feats, mask) with [B, n_vfm] leading axes."""
-    p5, f5, m5 = [], [], []
-    for i in range(scans.shape[0]):
-        p, f, m = voxel_down_sample_masked(scans[i], VFM_VOXEL_SIZE, mask=scan_mask[i], feats=scan_feats[i])
-        p5.append(p[:n_vfm])
-        f5.append(f[:n_vfm])
-        m5.append(m[:n_vfm])
-    return torch.stack(p5), torch.stack(f5), torch.stack(m5)
+    with span("queries"):
+        p5, f5, m5 = [], [], []
+        for i in range(scans.shape[0]):
+            p, f, m = voxel_down_sample_masked(scans[i], VFM_VOXEL_SIZE, mask=scan_mask[i], feats=scan_feats[i])
+            p5.append(p[:n_vfm])
+            f5.append(f[:n_vfm])
+            m5.append(m[:n_vfm])
+        return torch.stack(p5), torch.stack(f5), torch.stack(m5)
 
 
 class ScanToMapResult(NamedTuple):
@@ -117,27 +119,32 @@ def scan_to_map(
     (descriptors [M, D]), each from the identity initial guess.
 
     Arrays may be numpy or torch; they are moved to `device` (default: the
-    card). `grid`, if given, is used in place of building one from the map."""
+    card). `grid`, if given, is used in place of building one from the map.
+
+    The call is the span `scan_to_map`, in which the grid's build, the
+    queries, the matching and VFM-ICP carry their own spans
+    (`utils.profiling.span`)."""
     full_precision()
     dev = resolve_device(device)
 
     def put(a):
         return torch.as_tensor(a, dtype=torch.float32).to(dev)
 
-    mp, mf, sp, sf = put(map_points), put(map_feats), put(scans), put(scan_feats)
-    b, n = sp.shape[:2]
-    if grid is None:
-        grid = build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf)
-    sm = torch.ones((b, n), dtype=torch.bool, device=dev)
+    with span("scan_to_map"):
+        mp, mf, sp, sf = put(map_points), put(map_feats), put(scans), put(scan_feats)
+        b, n = sp.shape[:2]
+        if grid is None:
+            grid = build_hash_grid(mp, MAP_VOXEL_SIZE, feats=mf)
+        sm = torch.ones((b, n), dtype=torch.bool, device=dev)
 
-    p5, f5, m5 = vfm_queries(sp, sf, sm, n_vfm)
-    corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, p5, f5, m5)
+        p5, f5, m5 = vfm_queries(sp, sf, sm, n_vfm)
+        corrs = get_vfm_correspondences_batched(grid.points, grid.feats, grid.valid, p5, f5, m5)
 
-    eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
-    res = register_frames_vfm_lanes(grid, sp, sm, corrs, eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL,
-                                    max_iterations=max_iterations)
-    return ScanToMapResult(res.poses.numpy(), res.vfm_iterations, res.iterations,
-                           corrs.count.cpu().numpy(), res.rebuilds, res.loop)
+        eye = torch.eye(4, dtype=torch.float32).expand(b, 4, 4)
+        res = register_frames_vfm_lanes(grid, sp, sm, corrs, eye, MAX_CORRESPONDENCE_DISTANCE, KERNEL,
+                                        max_iterations=max_iterations)
+        return ScanToMapResult(res.poses.numpy(), res.vfm_iterations, res.iterations,
+                               corrs.count.cpu().numpy(), res.rebuilds, res.loop)
 
 
 def main(argv=None):

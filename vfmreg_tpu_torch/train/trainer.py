@@ -47,7 +47,6 @@ target's split, so a checkpoint written at one mesh shape loads at another.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 from pathlib import Path
@@ -63,6 +62,7 @@ from vfmreg_tpu_torch.ops.flash_attention import flash_attention, flash_attentio
 from vfmreg_tpu_torch.parallel import collectives
 from vfmreg_tpu_torch.parallel.mesh import shard_rows
 from vfmreg_tpu_torch.utils.device import resolve_device
+from vfmreg_tpu_torch.utils.profiling import span
 
 SUM = dist.ReduceOp.SUM
 # optax.adamw's defaults.
@@ -399,17 +399,6 @@ def reduce_gradients(model: nn.Module, group) -> None:
         g.copy_(part.view_as(g))
 
 
-@contextlib.contextmanager
-def _stage(timer, name: str, device: torch.device):
-    if timer is None:
-        yield
-        return
-    with timer.span(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-
 def _local_rows(x, mesh, device):
     x = torch.as_tensor(x)
     if mesh is not None:
@@ -426,7 +415,8 @@ def make_train_step(vit_cfg: ViTConfig, mesh=None, cfg: TrainConfig = TrainConfi
     gradients summed over "data", one AdamW step (`optimizer`, default the
     state's); the state is updated in place and returned. With a
     `utils.profiling.Timer`, each stage (forward, backward,
-    gradient_all_reduce, optimizer) is a span that ends in a synchronize."""
+    gradient_all_reduce, optimizer) is a span that ends in a synchronize
+    (`utils.profiling.span`)."""
     data_group = None if mesh is None else mesh.get_group("data")
 
     def train_step(state: TrainState, images_a, images_b, pix_idx, timer=None):
@@ -437,16 +427,16 @@ def make_train_step(vit_cfg: ViTConfig, mesh=None, cfg: TrainConfig = TrainConfi
         dev = model.vit.pos_embed.device
         if timer is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        with _stage(timer, "forward", dev):
+        with span("forward", timer, dev):
             a, b, idx = (_local_rows(x, mesh, dev) for x in (images_a, images_b, pix_idx))
             opt.zero_grad(set_to_none=True)
             patches_a, patches_b = model.vit(torch.cat([a, b]))["patches"].chunk(2)
             loss, acc = info_nce_loss(model.adapter, patches_a, patches_b, idx, cfg.temperature, data_group)
-        with _stage(timer, "backward", dev):
+        with span("backward", timer, dev):
             loss.backward()
-        with _stage(timer, "gradient_all_reduce", dev):
+        with span("gradient_all_reduce", timer, dev):
             reduce_gradients(model, data_group)
-        with _stage(timer, "optimizer", dev):
+        with span("optimizer", timer, dev):
             opt.step()
         state.step += 1
         return state, {"loss": loss.detach(), "accuracy": acc}

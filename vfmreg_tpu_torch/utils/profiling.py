@@ -5,6 +5,12 @@ named spans, `summarize_durations`, and `trace` / `annotate` on
 `torch.profiler` (the reference wraps `jax.profiler`). A span's time on the
 host clock holds the device's work only where the span ends in a
 synchronize; `trace` records the card's kernels besides.
+
+`span` marks the program's layer boundaries (the scan-to-map entry, the
+method row's stages, the grid, the queries, the matching, VFM-ICP and the
+ICP lane loop). Under a recording profiler each is a `vfmreg.<name>` range
+on the profiler's clock, beside the card's kernels; with a `Timer` it is a
+stage clock that ends in a synchronize; otherwise it costs one check.
 """
 
 from __future__ import annotations
@@ -66,6 +72,38 @@ def trace(log_dir: Optional[str] = None) -> Iterator[None]:
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+
+
+SPAN_PREFIX = "vfmreg."
+_NOTHING = contextlib.nullcontext()
+
+
+def span(name: str, timer: Optional[Timer] = None, device=None):
+    """A span of the program named `name`, as a context manager:
+
+    * while a profiler records, a host range `vfmreg.<name>` on its clock,
+      nested in the range of the span that encloses it. It is recorded as a
+      function's range, not as a user annotation (`record_function`): the
+      profiler gives a kernel's device-side range to the innermost user
+      annotation around its launch, and a span must not take the kernels
+      from an annotation that a caller put around the program;
+    * with `timer`, the block's host seconds added to `timer` under `name`
+      after a synchronize of `device` where it is a CUDA device;
+    * with neither, nothing beyond the one check."""
+    recording = torch.autograd._profiler_enabled()
+    if timer is None and not recording:
+        return _NOTHING
+    return _span(name, timer, device, recording)
+
+
+@contextlib.contextmanager
+def _span(name: str, timer: Optional[Timer], device, recording: bool) -> Iterator[None]:
+    mark = torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name) if recording else _NOTHING
+    clock = timer.span(name) if timer is not None else _NOTHING
+    with mark, clock:
+        yield
+        if timer is not None and device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager
