@@ -504,23 +504,34 @@ def cosine_probes(dev):
 
 
 def check_cosine(path, qn, dbn, valid, live, peaks):
-    """Kernel B1 against its plain version on the queries [N, D] that `path`
-    hands it; `live` [N] marks the rows that are real queries (the rest are
-    the batch's padding), of which most must have a decisive best match;
-    then at the contract's edges (`cosine_probes`)."""
+    """Kernel B1 on the queries [N, D] that `path` hands it, with the live
+    mask [N] it passes (the rest of the rows are the batch's padding): the
+    masked call against the dense call (every row computed) bit for bit on
+    the live rows and (-1e30, 0) on the others, against its plain version
+    (most live rows must have a decisive best match), and `row_stats`' live
+    rows; then at the contract's edges (`cosine_probes`). Times the masked
+    call (bound: the live rows' work), the dense call and the plain
+    version."""
     import torch
 
-    from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax, cosine_argmax_plain
+    from vfmreg_tpu_torch.ops.cosine_kernel import cosine_argmax, cosine_argmax_plain, reset_row_stats, row_stats
 
     t0 = time.perf_counter()
     probes = cosine_probes(qn.device)
-    sim_k, idx_k = cosine_argmax(qn, dbn, valid)
-    sim_p, idx_p = cosine_argmax_plain(qn, dbn, valid)
+    reset_row_stats()
+    sim_k, idx_k = cosine_argmax(qn, dbn, valid, live)
+    stats = row_stats()
+    sim_d, idx_d = cosine_argmax(qn, dbn, valid)
+    sim_p, idx_p = cosine_argmax_plain(qn, dbn, valid, live)
     decisive = top2_gap(qn, dbn, valid) > GAP
     torch.cuda.synchronize()
+    n_live = int(live.sum())
+    live_equal = bool(torch.equal(sim_k[live], sim_d[live]) and torch.equal(idx_k[live], idx_d[live]))
+    fill_ok = bool((sim_k[~live] == -1e30).all() and (idx_k[~live] == 0).all())
     err = float((sim_k - sim_p).abs().max())
     idx_bad = int(((idx_k != idx_p) & decisive).sum())
-    ok = (err <= SIM_ATOL and idx_bad == 0 and bool(decisive[live].float().mean() > 0.5)
+    ok = (live_equal and fill_ok and stats == {"rows_passed": qn.shape[0], "live_rows": n_live}
+          and err <= SIM_ATOL and idx_bad == 0 and bool(decisive[live].float().mean() > 0.5)
           and all(p["ok"] for p in probes.values()))
 
     def library():
@@ -528,28 +539,30 @@ def check_cosine(path, qn, dbn, valid, live, peaks):
         sim.masked_fill_(~valid[None, :], -1e30)
         return sim.max(dim=1)
 
-    ms = cuda_time_ms(lambda: cosine_argmax(qn, dbn, valid), reps=5)
-    plain_ms = cuda_time_ms(lambda: cosine_argmax_plain(qn, dbn, valid), reps=3)
+    ms = cuda_time_ms(lambda: cosine_argmax(qn, dbn, valid, live), reps=5)
+    dense_ms = cuda_time_ms(lambda: cosine_argmax(qn, dbn, valid), reps=5)
+    plain_ms = cuda_time_ms(lambda: cosine_argmax_plain(qn, dbn, valid, live), reps=3)
     library_ms = cuda_time_ms(library, reps=3)
     n, d = qn.shape
     m_valid = int(valid.sum())
-    flops = 2.0 * n * m_valid * d
-    nbytes = 4.0 * (n * d + m_valid * d) + dbn.shape[0] + 8.0 * n
+    flops = 2.0 * n_live * m_valid * d
+    nbytes = 4.0 * (n_live * d + m_valid * d) + dbn.shape[0] + 8.0 * n_live
     row = {
         "name": "cosine_argmax", "route": "cuda", "ok": ok, "source": "vfmreg_tpu_torch/csrc/cosine_argmax.cu",
         "replaces": "vfmreg_tpu/ops/cosine_kernel.py:56",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **_bound_3xtf32(nbytes, flops, peaks),
-        "library_ms": library_ms,
+        "max_abs_err": err, "ms": ms, "dense_ms": dense_ms, "plain_ms": plain_ms,
+        **_bound_3xtf32(nbytes, flops, peaks), "library_ms": library_ms,
     }
     row["shape"] = [n, dbn.shape[0], d]
     emit({"phase": "kernel_check", "path": path, "kernel": "cosine_argmax",
-          "m_valid": m_valid, "live_queries": int(live.sum()), "idx_disagree_decisive": idx_bad,
+          "m_valid": m_valid, "live_queries": n_live, "live_equal_dense": live_equal, "fill_ok": fill_ok,
+          "row_stats": stats, "idx_disagree_decisive": idx_bad,
           "idx_disagree_within_gap": int(((idx_k != idx_p) & ~decisive).sum()),
           "decisive_live_queries": int(decisive[live].sum()), "tflops": flops / ms / 1e9,
           "probes": probes, "seconds": time.perf_counter() - t0, **row})
     if not ok:
-        raise RuntimeError(f"cosine_argmax disagrees with its plain version: err={err} idx_bad={idx_bad} "
-                           f"probes={probes}")
+        raise RuntimeError(f"cosine_argmax: live_equal_dense={live_equal} fill_ok={fill_ok} row_stats={stats} "
+                           f"err={err} idx_bad={idx_bad} probes={probes}")
     return row
 
 

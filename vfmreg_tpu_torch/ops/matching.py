@@ -9,7 +9,11 @@ the masked median / MAD (`:120-137`), the map-sharded search
 through kernel B1 (`ops/cosine_kernel.py`) and follows its contract: masked
 map rows score -1e30 and the index is clamped to M-1. The reference's CPU
 path masks with -inf instead; the two differ only for a query whose every
-map row is masked, which falls below the acceptance gate either way.
+map row is masked, which falls below the acceptance gate either way. B1 is
+handed the scan mask and computes the live queries only: a masked query's
+similarity is the fill -1e30 and its target map row 0, where the reference
+(whose shapes are static) computes the padding row's match. No caller reads
+either on a masked row.
 """
 
 from __future__ import annotations
@@ -53,7 +57,9 @@ def masked_mad(values: torch.Tensor, mask: torch.Tensor, scale: float = 1.4826):
 class VFMCorrespondences(NamedTuple):
     source: torch.Tensor  # [..., N, 3] scan points (query side)
     target: torch.Tensor  # [..., N, 3] matched map points
-    mask: torch.Tensor  # [..., N] accepted (cosine >= threshold)
+    mask: torch.Tensor  # [..., N] accepted (a scan_mask row, cosine >= threshold)
+    # `target` and `similarity` are defined on scan_mask rows only; a masked
+    # row holds map row 0 and -1e30 (kernel B1's fill).
     similarity: torch.Tensor  # [..., N] best cosine similarity
     mean_similarity: torch.Tensor  # [...] over the valid queries
     median_distance: torch.Tensor  # [...] telemetry
@@ -113,13 +119,14 @@ def _chunked_argmin_l2(
 _NORM_ROWS = 512
 
 
-def _best_match(scan_feats, map_feats, map_mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    """L2-normalize both sides and run the cosine arg-max (kernel B1)."""
+def _best_match(scan_feats, map_feats, map_mask, scan_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """L2-normalize both sides and run the cosine arg-max (kernel B1) on the
+    live queries (`scan_mask`); the rest get B1's fill."""
     q = scan_feats.to(torch.float32)
     qn = torch.cat([l2_normalize(q[i : i + _NORM_ROWS]) for i in range(0, max(q.shape[0], 1), _NORM_ROWS)])
     qn = qn.contiguous()
     dbn = l2_normalize(map_feats.to(torch.float32)).contiguous()
-    return cosine_argmax(qn, dbn, map_mask.contiguous())
+    return cosine_argmax(qn, dbn, map_mask.contiguous(), scan_mask.reshape(-1).contiguous())
 
 
 def _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity):
@@ -137,7 +144,7 @@ def get_vfm_correspondences(
     min_cosine_similarity: float = 0.8,
 ) -> VFMCorrespondences:
     """Cosine 1-NN in descriptor space, scan [N] -> map [M]."""
-    best_sim, best_idx = _best_match(scan_feats, map_feats, map_mask)
+    best_sim, best_idx = _best_match(scan_feats, map_feats, map_mask, scan_mask)
     target = map_points[best_idx.to(torch.int64)]
     return _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity)
 
@@ -154,7 +161,7 @@ def get_vfm_correspondences_batched(
     memory once for all B scans. Fields carry a leading [B] axis."""
     with span("match"):
         b, n, d = scan_feats.shape
-        best_sim, best_idx = _best_match(scan_feats.reshape(b * n, d), map_feats, map_mask)
+        best_sim, best_idx = _best_match(scan_feats.reshape(b * n, d), map_feats, map_mask, scan_mask)
         best_sim = best_sim.reshape(b, n)
         target = map_points[best_idx.to(torch.int64)].reshape(b, n, 3)
         return _assemble(scan_points, scan_mask, best_sim, target, min_cosine_similarity)
@@ -174,9 +181,10 @@ def get_vfm_correspondences_map_sharded(
     matched points, and the first maximum over the ranks. With contiguous
     row shards in rank order, the first maximum within a shard and across
     the ranks is the lowest global row, as in the single-device search.
-    Every rank of the group calls it and gets the same result."""
+    Every rank of the group calls it and gets the same result. A masked
+    query has the fill on every rank, so its lowest rank is 0."""
     lead = scan_feats.shape[:-1]
-    sim_s, idx_s = _best_match(scan_feats.reshape(-1, scan_feats.shape[-1]), map_feats, map_mask)
+    sim_s, idx_s = _best_match(scan_feats.reshape(-1, scan_feats.shape[-1]), map_feats, map_mask, scan_mask)
     tgt_s = map_points[idx_s.to(torch.int64)]
     sims = collectives.all_gather(sim_s[None], group)  # [world, Q]
     tgts = collectives.all_gather(tgt_s[None], group)  # [world, Q, 3]
