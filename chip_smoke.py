@@ -195,7 +195,9 @@ B3 at the odometry's shapes, kernel_check for B4 at the odometry's cache,
 odometry_free, odometry_idle, odometry_readers_data, odometry_readers for
 each reader, odometry_readers_equal, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
-[2, 200, 4, 32] and at T = 320, descriptor, kernel_check for B5 at the
+[2, 200, 4, 32] and at T = 320, descriptor, descriptor_vitg14_data,
+kernel_check for B5 at the ViT-g/14-reg pass's [1, 325, 24, 64],
+descriptor_vitg14, kernel_check for B5 at the
 MaskCLIP pass's q, k, v [1, 321, 12, 64], descriptor_maskclip, featup,
 clip_text, kernel_check for B5 at the trainer's [16, 321, 6, 64], train,
 script: the whole run's seconds), then
@@ -249,6 +251,11 @@ GN_SRC_ULPS = 2
 ATTN_ATOL, DESC_COS = 2e-5, 0.9999
 # Descriptor pass: ViT-S/14 (vit.py PRESETS["dinov2_vits14"]), 12 blocks.
 VIT_PRESET, VIT_LAYERS = "dinov2_vits14", 12
+# descriptor_vitg14 phase: DINOv2 ViT-g/14 with registers at its published
+# widths and depth (40 blocks, 24 heads of 64, T = 1 + 4 + 16 x 20 = 325 at
+# the rig's 224 x 280), its 1.1 B random weights drawn on the card; the
+# cosine gate against plain attention on the first cloud's five images.
+VITG_PRESET, VITG_LAYERS, VITG_TOKENS = "dinov2_vitg14_reg", 40, 325
 # FeatUp phase: the learned stack's [16h, 16w, 384] output on the card
 # against the port's CPU evaluation of the same function, max abs error (f32
 # matmuls, softmaxes and sums in other orders over features of unit scale).
@@ -1059,6 +1066,84 @@ def drive_descriptor(dev, peaks, rows):
         raise RuntimeError(f"the descriptor pass did not launch B5 {VIT_LAYERS} x {n_images} times: {launches}")
     if cos_min < DESC_COS:
         raise RuntimeError(f"descriptors disagree with plain attention: min cosine {cos_min}")
+    return launches
+
+
+def drive_descriptor_vitg14(dev, peaks, rows):
+    """The descriptor_vitg14 phase: B5 checked on the pass's own q, k, v
+    [1, 325, 24, 64] (block 0 of the first image), then the pass over the
+    BATCH clouds once, counted (B5 launches, the ViT's images and tokens),
+    timed and gated (coverage exact, finite), and the first cloud once more
+    with plain attention for the cosine gate."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.models import vit
+    from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
+    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
+
+    t0 = time.perf_counter()
+    cfg = vit.PRESETS[VITG_PRESET]
+    model = vit.init_vit(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    gen = ImageFeatureGenerator("dinov2", config=cfg, params=model.state_dict(), device=dev)
+    del model
+    rig = SyntheticCameraRig(seed=SEED)
+    clouds = [make_rig_cloud(N_SCAN, seed=SEED + i) for i in range(BATCH)]
+    files = [[f"cloud{i}/{cam}.png" for cam in rig.cameras] for i in range(BATCH)]
+    torch.cuda.synchronize()
+    emit({"phase": "descriptor_vitg14_data", "seconds": time.perf_counter() - t0, "clouds": BATCH,
+          "points": N_SCAN, "cameras": len(rig.cameras), "image": [rig.height, rig.width, 3], "vit": VITG_PRESET,
+          "parameters": sum(p.numel() for p in gen.model.parameters()),
+          "weights_bytes": torch.cuda.memory_allocated()})
+
+    first = rig.read_images(files[0])[rig.cameras[0]]
+    batch, _ = preprocess_image(first, gen.patch_size, gen.patch_h, dev)
+    with torch.no_grad():
+        blk = gen.model.blocks[0]
+        q, k, v = blk.attn.qkv(blk.norm1(gen.model.tokens(batch)))
+    rows["flash_attention"] = check_flash("descriptor_vitg14", q, k, v, peaks)
+    del q, k, v, batch
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    counts = dict(vit.FORWARD_COUNTS)
+    t0 = time.perf_counter()
+    descs = [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    forwarded = {k: vit.FORWARD_COUNTS[k] - counts.get(k, 0) for k in ("images", "tokens")}
+    peak = torch.cuda.max_memory_allocated()
+    n_images = BATCH * len(rig.cameras)
+
+    plain_gen = ImageFeatureGenerator(params=gen.model.state_dict(),
+                                      config=dataclasses.replace(cfg, use_flash_attention=False), device=dev)
+    plain = create_descriptors(files[0], rig, plain_gen, clouds[0])
+    del plain_gen
+
+    covered_ok, finite, n_covered = True, True, 0
+    for f, c, d in zip(files, clouds, descs):
+        seen, first_empty = rig.coverage(c, rig.read_images(f))
+        covered = np.any(d != 0, axis=1)
+        covered_ok &= bool(np.array_equal(covered, (seen > 0) & ~first_empty))
+        finite &= bool(np.isfinite(d).all())
+        n_covered += int(covered.sum())
+    cos_min = float(_cosines(descs[0][np.any(plain != 0, axis=1)], plain[np.any(plain != 0, axis=1)]).min())
+    launches_ok = launches.get("flash_attention", 0) == VITG_LAYERS * n_images
+    counted_ok = forwarded == {"images": n_images, "tokens": n_images * VITG_TOKENS}
+    ok = covered_ok and finite and launches_ok and counted_ok and cos_min >= DESC_COS
+    emit({"phase": "descriptor_vitg14", "ok": ok, "seconds": seconds, "images": n_images,
+          "images_per_s": n_images / seconds, "scans_per_s": BATCH / seconds, "covered_points": n_covered,
+          "coverage_exact": covered_ok, "finite": finite, "forwarded": forwarded,
+          "min_cosine_vs_plain_attention": cos_min, "launches": launches, "peak_memory_bytes": peak})
+    if not (covered_ok and finite):
+        raise RuntimeError(f"ViT-g descriptors: coverage exact {covered_ok}, finite {finite}")
+    if not (launches_ok and counted_ok):
+        raise RuntimeError(f"the ViT-g pass launched B5 {launches} times and forwarded {forwarded}")
+    if cos_min < DESC_COS:
+        raise RuntimeError(f"ViT-g descriptors disagree with plain attention: min cosine {cos_min}")
     return launches
 
 
@@ -3369,6 +3454,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["descriptor"] = {}
     by_path["descriptor"] = drive_descriptor(dev, peaks, rows["descriptor"])
+    torch.cuda.empty_cache()
+    rows["descriptor_vitg14"] = {}
+    by_path["descriptor_vitg14"] = drive_descriptor_vitg14(dev, peaks, rows["descriptor_vitg14"])
     torch.cuda.empty_cache()
     rows["descriptor_maskclip"] = {}
     by_path["descriptor_maskclip"], mc_descs, mc_gen = drive_descriptor_maskclip(

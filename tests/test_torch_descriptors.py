@@ -41,7 +41,8 @@ from vfmreg_tpu_torch.ops.projection import sample_patch_features  # noqa: E402
 from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors  # noqa: E402
 from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud  # noqa: E402
 
-PORT_SMALL = ViTConfig(**{f.name: getattr(SMALL_VIT, f.name) for f in dataclasses.fields(ViTConfig)})
+PORT_SMALL = ViTConfig(**{f.name: getattr(SMALL_VIT, f.name) for f in dataclasses.fields(ViTConfig)
+                          if hasattr(SMALL_VIT, f.name)})
 
 
 @pytest.fixture(scope="module")

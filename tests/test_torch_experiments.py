@@ -62,7 +62,8 @@ from vfmreg_tpu_torch.pipeline import registration_node as trn  # noqa: E402
 from vfmreg_tpu_torch.registration import ransac as transac  # noqa: E402
 
 METHODS = dict(methods_ransac=[("vfm", True)], methods_teaser=[("vfm", True)], methods_pointdsc=[])
-PORT_SMALL = ViTConfig(**{f.name: getattr(SMALL_VIT, f.name) for f in dataclasses.fields(ViTConfig)})
+PORT_SMALL = ViTConfig(**{f.name: getattr(SMALL_VIT, f.name) for f in dataclasses.fields(ViTConfig)
+                          if hasattr(SMALL_VIT, f.name)})
 D = 24
 TREE_COLORS = np.array([[217, 60, 165], [118, 105, 57]], dtype=np.float64) / 255.0
 TREE_XY = np.array([[-30.0, -20.0], [-10.0, 20.0], [10.0, -20.0], [30.0, 20.0], [-25.0, 5.0], [25.0, -5.0]])

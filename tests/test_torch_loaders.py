@@ -355,7 +355,8 @@ MASKCLIP_512 = JMaskCLIPConfig(hidden_size=64, num_layers=2, num_heads=4, patch_
 def _generators(model):
     if model == "dinov2":
         params = init_vit_params(jax.random.PRNGKey(3), SMALL_VIT)
-        pcfg = ViTConfig(**{f.name: getattr(SMALL_VIT, f.name) for f in dataclasses.fields(ViTConfig)})
+        pcfg = ViTConfig(**{f.name: getattr(SMALL_VIT, f.name) for f in dataclasses.fields(ViTConfig)
+                            if hasattr(SMALL_VIT, f.name)})
         sd = convert.vit_params_from_numpy(jax.tree_util.tree_map(np.asarray, params), pcfg)
         return (jif.ImageFeatureGenerator("dinov2", params=params, config=SMALL_VIT),
                 tif.ImageFeatureGenerator("dinov2", params=sd, config=pcfg, device="cpu"))

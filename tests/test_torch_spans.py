@@ -14,16 +14,27 @@
   row's eight stages follow one another and cover the call;
 * without a profiler or a timer neither entry enters a profiler range or
   calls a synchronize, and their poses, counts and stats are the same bit
-  for bit with and without the profiler.
+  for bit with and without the profiler;
+* `create_descriptors` over a batch of 8 rig scans (5 images of 1232 x
+  1616 each, a ViT-g/14-reg-shaped model cut to 48 wide and 2 blocks): one
+  root `vfmreg.descriptors` a scan, inside it one `vfmreg.vit` an image and
+  one `vfmreg.descriptors.assemble` an image plus one for the scatter, the
+  ViT counter at 40 images and 40 x 325 tokens, and the generator's timer
+  clocking the same spans.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from vfmreg_tpu_torch.models import vit  # noqa: E402
+from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator  # noqa: E402
 from vfmreg_tpu_torch.pipeline import registration_node as trn  # noqa: E402
-from vfmreg_tpu_torch.pipeline.synthetic import make_synthetic_scene  # noqa: E402
+from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors  # noqa: E402
+from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud, make_synthetic_scene  # noqa: E402
 from vfmreg_tpu_torch.scan_to_map import scan_to_map, shared_map_batch  # noqa: E402
 from vfmreg_tpu_torch.utils import profiling  # noqa: E402
 
@@ -218,3 +229,54 @@ def test_row_without_profiler_unmarked_and_equal(row_runs):
     for k in ("iterations", "settled", "rebuilds", "loop", "icp_width", "corr_width"):
         assert plain["stats"][k] == profiled["stats"][k], k
     assert set(plain["stats"]["seconds"]) == set(profiled["stats"]["seconds"]) == {"total"}
+
+
+DESC_SCANS = 8
+
+
+@pytest.fixture(scope="module")
+def descriptor_runs():
+    cfg = dataclasses.replace(vit.PRESETS["dinov2_vitg14_reg"], hidden_size=48, num_layers=2, num_heads=3)
+    gen = ImageFeatureGenerator("dinov2", config=cfg, seed=0, device="cpu")
+    rig = SyntheticCameraRig(seed=0)
+    clouds = [make_rig_cloud(256, seed=i) for i in range(DESC_SCANS)]
+    files = [[f"cloud{i}/{cam}.png" for cam in rig.cameras] for i in range(DESC_SCANS)]
+
+    def run():
+        before = dict(vit.FORWARD_COUNTS)
+        out = [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
+        return out, {k: vit.FORWARD_COUNTS[k] - before.get(k, 0) for k in ("images", "tokens")}
+
+    return (gen, rig, files, clouds), _both(run)
+
+
+def test_descriptor_spans(descriptor_runs):
+    _, (_, _, _, marks, spans) = descriptor_runs
+    assert len(marks) == len(spans)
+    roots = _named(spans, "descriptors")
+    assert len(roots) == DESC_SCANS and all(a[2] <= b[1] for a, b in zip(roots, roots[1:]))
+    vits, assemble = _named(spans, "vit"), _named(spans, "descriptors.assemble")
+    cameras = len(SyntheticCameraRig.cameras)
+    assert len(vits) == DESC_SCANS * cameras and len(assemble) == DESC_SCANS * (cameras + 1)
+    assert {s[0] for s in spans} == {"descriptors", "vit", "descriptors.assemble"}
+    for root in roots:
+        inner = [s for s in spans if s is not root and _inside(s, root)]
+        assert [s[0] for s in inner] == ["vit", "descriptors.assemble"] * cameras + ["descriptors.assemble"]
+        assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))  # the layers follow one another
+
+
+def test_descriptor_counter_and_no_marks_without_profiler(descriptor_runs):
+    _, (plain, (marks, syncs), profiled, _, _) = descriptor_runs
+    cameras = len(SyntheticCameraRig.cameras)
+    assert plain[1] == profiled[1] == {"images": DESC_SCANS * cameras, "tokens": DESC_SCANS * cameras * 325}
+    assert marks == [] and syncs == []
+    assert all(np.array_equal(a, b) for a, b in zip(plain[0], profiled[0]))
+
+
+def test_descriptor_timer_clocks_the_spans(descriptor_runs):
+    (gen, rig, files, clouds), (plain, _, _, _, _) = descriptor_runs
+    timer = profiling.Timer()
+    out = create_descriptors(files[0], rig, gen, clouds[0], timer=timer)
+    assert dict(timer.counts) == {"descriptors": 1, "vit": 5, "descriptors.assemble": 6}
+    assert timer.totals["descriptors"] >= timer.totals["vit"] + timer.totals["descriptors.assemble"]
+    assert np.array_equal(out, plain[0][0])

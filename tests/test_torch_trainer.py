@@ -337,3 +337,17 @@ def test_world1_mesh_step_equals_single(world1, tmp_path):
     single = ttrain.restore_checkpoint(path, _port_state(seed=5))
     for name, p in single.model.named_parameters():
         assert torch.equal(p, p1[name]), name
+
+
+@pytest.mark.parametrize("change", [{"ffn": "swiglu"}, {"num_register_tokens": 4},
+                                    {"ffn": "swiglu", "num_register_tokens": 4, "interpolate_antialias": True}])
+def test_split_refuses_swiglu_and_registers(change):
+    """The tp split knows the GELU MLP's fc1 / fc2 only: a SwiGLU or register
+    config (dinov2_vitg14_reg's kind) is refused, not sharded wrongly."""
+    cfg = dataclasses.replace(PORT_TINY, **change)
+    with pytest.raises(NotImplementedError, match="register tokens"):
+        ttrain.create_train_state(torch.Generator().manual_seed(0), cfg, None, TCFG, "cpu")
+    vit = tvit.init_vit(cfg, torch.Generator().manual_seed(0), device="cpu")
+    adapter = ttrain.init_adapter(torch.Generator().manual_seed(1), cfg.hidden_size, TCFG, device="cpu")
+    with pytest.raises(NotImplementedError, match="would shard wrongly"):
+        ttrain.shard_vit_params(vit, adapter)

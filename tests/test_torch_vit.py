@@ -47,7 +47,7 @@ VITS_2 = dataclasses.replace(jvit.PRESETS["dinov2_vits14"], num_layers=2)
 
 
 def _port_config(cfg, flash=True):
-    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(tvit.ViTConfig)}
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(tvit.ViTConfig) if hasattr(cfg, f.name)}
     return tvit.ViTConfig(**{**fields, "use_flash_attention": flash})
 
 

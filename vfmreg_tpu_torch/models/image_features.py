@@ -40,6 +40,7 @@ from vfmreg_tpu_torch.models.clip_text import CLIPText, CLIPTextConfig
 from vfmreg_tpu_torch.models.maskclip import MaskCLIP, MaskCLIPConfig, init_maskclip
 from vfmreg_tpu_torch.models.vit import PRESETS, ViT, init_vit
 from vfmreg_tpu_torch.utils.device import resolve_device
+from vfmreg_tpu_torch.utils.profiling import Timer, span
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -105,7 +106,9 @@ class ImageFeatureGenerator:
     (`vit.load_dinov2_state_dict`, or `convert.vit_params_from_numpy` of the
     reference's parameter pytree) or `models.maskclip.MaskCLIP`'s
     (`maskclip.load_clip_visual_state_dict`, `convert.maskclip_params_from_numpy`);
-    without it the weights are random, from `seed`. `featup_params` is a
+    without it the weights are random, from `seed`. The model is built
+    without an initialisation of its own and takes the given tensors (no copy
+    where they are float32 on `device` already). `featup_params` is a
     `models.featup.JBUStack` state dict (`featup.load_featup_state_dict`,
     `convert.jbu_stack_params_from_numpy`) for `use_featup=True`; the text
     tower is attached with `set_text_encoder` (`clip_text.load_clip_text_state_dict`,
@@ -137,9 +140,12 @@ class ImageFeatureGenerator:
         if params is None:
             self.model = init(self.config, torch.Generator().manual_seed(seed), self.device)
         else:
-            self.model = model_cls(self.config)
-            self.model.load_state_dict(params)
-            self.model = self.model.to(self.device).eval()
+            with torch.device("meta"):
+                self.model = model_cls(self.config)
+            self.model.load_state_dict(
+                {k: torch.as_tensor(v, dtype=torch.float32, device=self.device) for k, v in params.items()},
+                assign=True)
+            self.model = self.model.eval()
         self.patch_size = self.config.patch_size
         self.patch_h = 16  # as FeatUp
         self.featup_params = featup_params
@@ -154,8 +160,9 @@ class ImageFeatureGenerator:
         self.tokenizer = None
 
     @torch.no_grad()
-    def _forward(self, batch: torch.Tensor) -> torch.Tensor:
-        return self.model(batch)["patches"]  # [B, h, w, D]
+    def _forward(self, batch: torch.Tensor, timer: Optional[Timer] = None) -> torch.Tensor:
+        with span("vit", timer, self.device):
+            return self.model(batch)["patches"]  # [B, h, w, D]
 
     def _learned_stack(self) -> Optional[featup.JBUStack]:
         """FeatUp's JBU stack from `featup_params`, else from the checkpoint
@@ -170,9 +177,12 @@ class ImageFeatureGenerator:
         return self._featup_stack
 
     def get_image_features(
-        self, image: np.ndarray, upsample: bool = False, cache_file: Optional[Path] = None
+        self, image: np.ndarray, upsample: bool = False, cache_file: Optional[Path] = None,
+        timer: Optional[Timer] = None,
     ) -> np.ndarray:
-        """[H, W, D] (upsample=True) or [h, w, D] patch-grid features, f32 numpy."""
+        """[H, W, D] (upsample=True) or [h, w, D] patch-grid features, f32
+        numpy. `timer` (a `utils.profiling.Timer`) clocks the forward's span
+        `vfmreg.vit`, ending it in a synchronize."""
         if cache_file:
             cache_file = Path(cache_file)
             cache_file = cache_file.parent / f"{cache_file.stem}_{self.use_featup}_{upsample}.npy"
@@ -180,7 +190,7 @@ class ImageFeatureGenerator:
                 return np.load(cache_file)
 
         batch, (img_h, img_w) = preprocess_image(image, self.patch_size, self.patch_h, self.device)
-        feats = self._forward(batch)  # [1, h, w, D]
+        feats = self._forward(batch, timer)  # [1, h, w, D]
         if upsample:
             stack = self._learned_stack() if self.use_featup else None
             if self.use_featup and stack is None:

@@ -5,9 +5,17 @@ Counterpart of `vfmreg_tpu/models/vit.py` (which matches
 
   patch embedding (14x14, stride 14) -> [cls] + patches + position embedding
   resized by torch-bicubic weight matrices
+  -> [cls] + register tokens + patches (registers: no position embedding)
   -> num_layers x { LN -> MHSA (qkv bias) -> LayerScale -> residual
-                    LN -> MLP (exact-erf GELU) -> LayerScale -> residual }
+                    LN -> FFN -> LayerScale -> residual }
   -> final LN (eps 1e-6).
+
+The FFN is the GELU MLP (exact erf) of ViT-S/B/L, or for `ffn="swiglu"` the
+SwiGLU of the giant models: W3 (silu(a) * b) with [a; b] = W12 x split in
+halves, hidden width (int(4 D * 2 / 3) + 7) // 8 * 8. DINOv2's models with
+registers (`dinov2_vitg14_reg`; Darcet et al., arXiv:2309.16588) insert
+`num_register_tokens` learned tokens after cls and resize the position grid
+with an antialiased bicubic (`interpolate_antialias`), as the hub builds them.
 
 Images come in the reference's layout, [B, H, W, 3] NHWC, already resized to
 patch multiples and normalised (`models/image_features.preprocess_image`);
@@ -28,7 +36,9 @@ transformers or the facebook/FeatUp layout.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import math
 from typing import Dict, Mapping
 
@@ -52,17 +62,40 @@ class ViTConfig:
     pretrain_img_size: int = 518  # position grid 37 x 37 for DINOv2
     layerscale_init: float = 1.0
     use_flash_attention: bool = True
+    ffn: str = "mlp"  # "mlp" (GELU) or "swiglu"
+    num_register_tokens: int = 0
+    interpolate_antialias: bool = False
 
     @property
     def pos_grid(self) -> int:
         return self.pretrain_img_size // self.patch_size
+
+    @property
+    def ffn_hidden(self) -> int:
+        """The FFN's hidden width: D x mlp_ratio, or for SwiGLU two thirds of
+        it rounded up to a multiple of 8 (facebookresearch/dinov2's
+        `SwiGLUFFNFused`, transformers' `Dinov2SwiGLUFFN`)."""
+        width = self.hidden_size * self.mlp_ratio
+        if self.ffn == "swiglu":
+            return (int(width * 2 / 3) + 7) // 8 * 8
+        if self.ffn != "mlp":
+            raise ValueError(f"unknown FFN kind {self.ffn!r}: 'mlp' or 'swiglu'")
+        return width
 
 
 PRESETS = {
     "dinov2_vits14": ViTConfig(hidden_size=384, num_layers=12, num_heads=6),
     "dinov2_vitb14": ViTConfig(hidden_size=768, num_layers=12, num_heads=12),
     "dinov2_vitl14": ViTConfig(hidden_size=1024, num_layers=24, num_heads=16),
+    # hub `dinov2_vitg14_reg`: vit_giant2, ffn_layer="swiglufused", 4 registers,
+    # interpolate_antialias=True, interpolate_offset=0.0, img_size 518, init_values 1.0.
+    "dinov2_vitg14_reg": ViTConfig(hidden_size=1536, num_layers=40, num_heads=24, ffn="swiglu",
+                                   num_register_tokens=4, interpolate_antialias=True),
 }
+
+# Images and tokens (cls and registers included) through `ViT.forward`, summed
+# over the process; read by the benchmark.
+FORWARD_COUNTS: collections.Counter = collections.Counter()
 
 
 def _torch_bicubic_matrix(n_in: int, n_out: int) -> torch.Tensor:
@@ -87,15 +120,30 @@ def _torch_bicubic_matrix(n_in: int, n_out: int) -> torch.Tensor:
     return mat.index_put_((rows, taps.reshape(-1)), weights.reshape(-1), accumulate=True)
 
 
-def interpolate_pos_embed(pos_embed: torch.Tensor, grid_h: int, grid_w: int, cfg: ViTConfig):
+@functools.lru_cache(maxsize=None)
+def _torch_bicubic_aa_matrix(n_in: int, n_out: int) -> torch.Tensor:
+    """[n_out, n_in] weights of `F.interpolate(mode="bicubic",
+    align_corners=False, antialias=True)` along one axis. PyTorch's
+    antialiased resize is separable (one pass an axis), so resizing an
+    identity along the width, the height left at size 1, gives the axis's
+    weights; formed on the CPU. (Along the height of an [n, 1] input the CPU
+    kernel gives other weights than it applies to a 2-D grid.)"""
+    eye = torch.eye(n_in, dtype=torch.float32).reshape(n_in, 1, 1, n_in)
+    out = F.interpolate(eye, size=(1, n_out), mode="bicubic", align_corners=False, antialias=True)
+    return out[:, 0, 0, :].T.contiguous()
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, grid_h: int, grid_w: int, cfg, antialias: bool = False):
     """Bicubic resize of the patch position embeddings [1, 1 + g*g, D] to
-    (grid_h, grid_w), as two 1-D weight matmuls; unchanged at the pretrain grid."""
+    (grid_h, grid_w) (g = `cfg.pos_grid`), as two 1-D weight matmuls,
+    antialiased where `antialias`; unchanged at the pretrain grid."""
     g = cfg.pos_grid
     if grid_h == g and grid_w == g:
         return pos_embed
     patch_pos = pos_embed[0, 1:].reshape(g, g, -1)
-    wh = _torch_bicubic_matrix(g, grid_h).to(pos_embed.device)
-    ww = _torch_bicubic_matrix(g, grid_w).to(pos_embed.device)
+    matrix = _torch_bicubic_aa_matrix if antialias else _torch_bicubic_matrix
+    wh = matrix(g, grid_h).to(pos_embed.device)
+    ww = matrix(g, grid_w).to(pos_embed.device)
     patch_pos = torch.einsum("hi,ijd->hjd", wh, patch_pos)
     patch_pos = torch.einsum("wj,hjd->hwd", ww, patch_pos)
     return torch.cat([pos_embed[:, :1], patch_pos.reshape(1, grid_h * grid_w, -1)], dim=1)
@@ -144,21 +192,34 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
+    """One pre-LN block; its FFN is `fc1`, GELU, `fc2` (ffn "mlp") or `w12`,
+    SwiGLU, `w3` (ffn "swiglu")."""
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        d, eps = cfg.hidden_size, cfg.layernorm_eps
+        d, eps, f = cfg.hidden_size, cfg.layernorm_eps, cfg.ffn_hidden
         self.norm1 = nn.LayerNorm(d, eps=eps)
         self.attn = Attention(cfg)
         self.ls1 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
         self.norm2 = nn.LayerNorm(d, eps=eps)
-        self.fc1 = nn.Linear(d, d * cfg.mlp_ratio)
-        self.fc2 = nn.Linear(d * cfg.mlp_ratio, d)
+        self.swiglu = cfg.ffn == "swiglu"
+        if self.swiglu:
+            self.w12 = nn.Linear(d, 2 * f)
+            self.w3 = nn.Linear(f, d)
+        else:
+            self.fc1 = nn.Linear(d, f)
+            self.fc2 = nn.Linear(f, d)
         self.ls2 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if self.swiglu:
+            a, b = self.w12(x).chunk(2, dim=-1)
+            return self.w3(F.silu(a) * b)
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.ls1 * self.attn(self.norm1(x))
-        y = F.gelu(self.fc1(self.norm2(x)), approximate="none")
-        return x + self.ls2 * self.fc2(y)
+        return x + self.ls2 * self.ffn(self.norm2(x))
 
 
 class ViT(nn.Module):
@@ -172,49 +233,73 @@ class ViT(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid**2, d))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.norm = nn.LayerNorm(d, eps=cfg.layernorm_eps)
 
     def tokens(self, images: torch.Tensor) -> torch.Tensor:
-        """Embedded tokens [B, 1 + h * w, D]: cls, patches, position embedding."""
+        """Embedded tokens [B, 1 + R + h * w, D]: cls, the R register tokens,
+        patches; the position embedding on cls and patches."""
         p = self.cfg.patch_size
         gh, gw = images.shape[1] // p, images.shape[2] // p
         x = self.patch_embed(images)
         cls = self.cls_token.expand(x.shape[0], 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1)
-        return x + interpolate_pos_embed(self.pos_embed, gh, gw, self.cfg)
+        x = x + interpolate_pos_embed(self.pos_embed, gh, gw, self.cfg, self.cfg.interpolate_antialias)
+        if self.cfg.num_register_tokens:
+            reg = self.register_tokens.expand(x.shape[0], -1, -1)
+            x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
+        return x
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         b = images.shape[0]
         p = self.cfg.patch_size
         gh, gw = images.shape[1] // p, images.shape[2] // p
         x = self.tokens(images)
+        FORWARD_COUNTS["images"] += b
+        FORWARD_COUNTS["tokens"] += b * x.shape[1]
         for block in self.blocks:
             x = block(x)
         x = self.norm(x)
-        return {"cls": x[:, 0], "patches": x[:, 1:].reshape(b, gh, gw, -1)}
+        first = 1 + self.cfg.num_register_tokens
+        return {"cls": x[:, 0], "patches": x[:, first:].reshape(b, gh, gw, -1)}
 
 
 def init_vit(cfg: ViTConfig, generator: torch.Generator, device=None) -> ViT:
     """A `ViT` with random weights in the reference's shapes and scales
-    (`init_vit_params`): dense N(0, 1/n_in), zero biases, patch, cls and
-    position embeddings N(0, 0.02^2), unit norms, LayerScale at its init
-    value. Drawn on the CPU from `generator`, then moved to `device`
-    (default: the card)."""
+    (`init_vit_params`): dense N(0, 1/n_in), zero biases, patch, cls,
+    register and position embeddings N(0, 0.02^2), unit norms, LayerScale at
+    its init value. Drawn on the generator's device in one fixed order (a
+    CPU generator: on the CPU, then moved to `device`, default the card), each
+    weight in place: a CUDA generator draws a 1 B-parameter model on the card
+    with no pass over its weights on the CPU."""
     dev = resolve_device(device)
-    model = ViT(cfg)
+    with torch.device("meta"):
+        model = ViT(cfg)
+    model = model.to_empty(device=generator.device)
 
-    def normal(shape, std):
-        return torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    def normal_(t, std):
+        t.normal_(generator=generator).mul_(std)
 
     with torch.no_grad():
-        model.patch_embed.weight.copy_(normal(model.patch_embed.weight.shape, 0.02))
-        model.cls_token.copy_(normal(model.cls_token.shape, 0.02))
-        model.pos_embed.copy_(normal(model.pos_embed.shape, 0.02))
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("ls1", "ls2"):
+                p.fill_(cfg.layerscale_init)
+            elif leaf == "weight" and "norm" in name:
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        normal_(model.patch_embed.weight, 0.02)
+        normal_(model.cls_token, 0.02)
+        normal_(model.pos_embed, 0.02)
+        if cfg.num_register_tokens:
+            normal_(model.register_tokens, 0.02)
         for blk in model.blocks:
-            for lin in (blk.attn.q, blk.attn.k, blk.attn.v, blk.attn.proj, blk.fc1, blk.fc2):
-                lin.weight.copy_(normal(lin.weight.shape, 1.0 / math.sqrt(lin.in_features)))
-                lin.bias.zero_()
+            ffn = (blk.w12, blk.w3) if blk.swiglu else (blk.fc1, blk.fc2)
+            for lin in (blk.attn.q, blk.attn.k, blk.attn.v, blk.attn.proj, *ffn):
+                normal_(lin.weight, 1.0 / math.sqrt(lin.in_features))
     return model.to(dev).eval()
 
 
@@ -228,13 +313,23 @@ def load_dinov2_state_dict(state_dict: Mapping[str, object], cfg: ViTConfig) -> 
       `blocks.N.*`, fused `attn.qkv`.
 
     Linear weights stay [out, in] and the patch weight stays OIHW, as the
-    checkpoints hold them. Load with `ViT(cfg).load_state_dict(...)`."""
-    sd = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32) for k, v in state_dict.items()}
+    checkpoints hold them. A SwiGLU model's FFN is `mlp.weights_in` /
+    `mlp.weights_out` (transformers) or `mlp.w12` / `mlp.w3` (facebook), its
+    registers `embeddings.register_tokens` / `register_tokens`; the unused
+    `mask_token` is left out. A tensor's values stay on its device (a
+    checkpoint drawn on the card loads there); the result's tensors are the
+    port's own copies. Load with `ViT(cfg).load_state_dict(...)`."""
+    sd = {k: (v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))).to(torch.float32)
+          for k, v in state_dict.items()}
     d = cfg.hidden_size
     out: Dict[str, torch.Tensor] = {}
 
     def put(dst, src):
         out[dst] = sd[src].clone()
+
+    # The FFN's two linears: (the port's name, transformers' and facebook's under `mlp.`).
+    ffn = ((("w12", "weights_in", "w12"), ("w3", "weights_out", "w3")) if cfg.ffn == "swiglu"
+           else (("fc1", "fc1", "fc1"), ("fc2", "fc2", "fc2")))
 
     if any(k.startswith("embeddings.") for k in sd):
         put("patch_embed.weight", "embeddings.patch_embeddings.projection.weight")
@@ -243,6 +338,8 @@ def load_dinov2_state_dict(state_dict: Mapping[str, object], cfg: ViTConfig) -> 
         put("pos_embed", "embeddings.position_embeddings")
         put("norm.weight", "layernorm.weight")
         put("norm.bias", "layernorm.bias")
+        if cfg.num_register_tokens:
+            put("register_tokens", "embeddings.register_tokens")
         for i in range(cfg.num_layers):
             src, dst = f"encoder.layer.{i}.", f"blocks.{i}."
             for name, key in (("q", "query"), ("k", "key"), ("v", "value")):
@@ -250,8 +347,10 @@ def load_dinov2_state_dict(state_dict: Mapping[str, object], cfg: ViTConfig) -> 
                     put(f"{dst}attn.{name}.{p}", f"{src}attention.attention.{key}.{p}")
             for p in ("weight", "bias"):
                 put(f"{dst}attn.proj.{p}", f"{src}attention.output.dense.{p}")
-                for part in ("norm1", "norm2", "mlp.fc1", "mlp.fc2"):
-                    put(f"{dst}{part.replace('mlp.', '')}.{p}", f"{src}{part}.{p}")
+                for part in ("norm1", "norm2"):
+                    put(f"{dst}{part}.{p}", f"{src}{part}.{p}")
+                for mine, theirs, _ in ffn:
+                    put(f"{dst}{mine}.{p}", f"{src}mlp.{theirs}.{p}")
             put(f"{dst}ls1", f"{src}layer_scale1.lambda1")
             put(f"{dst}ls2", f"{src}layer_scale2.lambda1")
     else:
@@ -261,6 +360,8 @@ def load_dinov2_state_dict(state_dict: Mapping[str, object], cfg: ViTConfig) -> 
         put("pos_embed", "pos_embed")
         put("norm.weight", "norm.weight")
         put("norm.bias", "norm.bias")
+        if cfg.num_register_tokens:
+            put("register_tokens", "register_tokens")
         for i in range(cfg.num_layers):
             src, dst = f"blocks.{i}.", f"blocks.{i}."
             qkv_w, qkv_b = sd[f"{src}attn.qkv.weight"], sd[f"{src}attn.qkv.bias"]
@@ -269,8 +370,10 @@ def load_dinov2_state_dict(state_dict: Mapping[str, object], cfg: ViTConfig) -> 
                 out[f"{dst}attn.{name}.bias"] = qkv_b[j * d : (j + 1) * d].clone()
             for p in ("weight", "bias"):
                 put(f"{dst}attn.proj.{p}", f"{src}attn.proj.{p}")
-                for part in ("norm1", "norm2", "mlp.fc1", "mlp.fc2"):
-                    put(f"{dst}{part.replace('mlp.', '')}.{p}", f"{src}{part}.{p}")
+                for part in ("norm1", "norm2"):
+                    put(f"{dst}{part}.{p}", f"{src}{part}.{p}")
+                for mine, _, theirs in ffn:
+                    put(f"{dst}{mine}.{p}", f"{src}mlp.{theirs}.{p}")
             put(f"{dst}ls1", f"{src}ls1.gamma")
             put(f"{dst}ls2", f"{src}ls2.gamma")
     return out

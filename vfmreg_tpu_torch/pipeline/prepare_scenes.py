@@ -36,51 +36,59 @@ from vfmreg_tpu_torch.data.oxford_robotcar import OxfordRobotcar
 from vfmreg_tpu_torch.kiss.voxelization import voxel_down_sample
 from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator
 from vfmreg_tpu_torch.ops.projection import sample_patch_features
+from vfmreg_tpu_torch.utils.profiling import span
 
 
-def create_descriptors(image_files, sequence, feature_generator, pcl: np.ndarray) -> np.ndarray:
+def create_descriptors(image_files, sequence, feature_generator, pcl: np.ndarray, timer=None) -> np.ndarray:
     """[N, D] f32 descriptors of the points `pcl` [N, 3] from the images
     `sequence.read_images(filenames=image_files)`; zeros for uncovered points.
 
     `feature_generator` is a `models.image_features.ImageFeatureGenerator`;
     the patch sampling runs on its device. `sequence` projects with
     `project_pcl_to_image(pcl_h, image, camera)` (a dataset loader, or
-    `pipeline.synthetic.SyntheticCameraRig`)."""
+    `pipeline.synthetic.SyntheticCameraRig`). Spans: the call is
+    `vfmreg.descriptors`, each image's forward `vfmreg.vit`, and each
+    image's projection and sampling, and the first-camera scatter,
+    `vfmreg.descriptors.assemble`; a `utils.profiling.Timer` as `timer`
+    clocks them."""
     dev = feature_generator.device
-    images = sequence.read_images(filenames=image_files)
-    is_nclt = isinstance(sequence, NCLT)
-    pcl_h = np.insert(pcl, 3, values=1, axis=1).T  # 4 x N homogeneous
+    with span("descriptors", timer, dev):
+        images = sequence.read_images(filenames=image_files)
+        is_nclt = isinstance(sequence, NCLT)
+        pcl_h = np.insert(pcl, 3, values=1, axis=1).T  # 4 x N homogeneous
 
-    indices: List[np.ndarray] = []
-    features: List[np.ndarray] = []
-    for camera, image in images.items():
-        patch_feats = feature_generator.get_image_features(image, upsample=False)
-        if is_nclt:
-            # Project in the unrotated frame: the image and its patch grid
-            # rotated back counter-clockwise.
-            image = np.rot90(image, k=1, axes=(0, 1))
-            patch_feats = np.ascontiguousarray(np.rot90(patch_feats, k=1, axes=(0, 1)))
-        u, v, idx = sequence.project_pcl_to_image(pcl_h, image, camera)
-        if len(idx) == 0:
-            continue
-        feats = sample_patch_features(
-            torch.from_numpy(patch_feats).to(dev), torch.from_numpy(u).to(dev),
-            torch.from_numpy(v).to(dev), image.shape[0], image.shape[1],
-        ).cpu().numpy()
-        feats[np.all(image[v, u] == 0, axis=-1)] = 0.0  # empty pixels
-        indices.append(idx)
-        features.append(feats)
+        indices: List[np.ndarray] = []
+        features: List[np.ndarray] = []
+        for camera, image in images.items():
+            patch_feats = feature_generator.get_image_features(image, upsample=False, timer=timer)
+            with span("descriptors.assemble", timer, dev):
+                if is_nclt:
+                    # Project in the unrotated frame: the image and its patch
+                    # grid rotated back counter-clockwise.
+                    image = np.rot90(image, k=1, axes=(0, 1))
+                    patch_feats = np.ascontiguousarray(np.rot90(patch_feats, k=1, axes=(0, 1)))
+                u, v, idx = sequence.project_pcl_to_image(pcl_h, image, camera)
+                if len(idx) == 0:
+                    continue
+                feats = sample_patch_features(
+                    torch.from_numpy(patch_feats).to(dev), torch.from_numpy(u).to(dev),
+                    torch.from_numpy(v).to(dev), image.shape[0], image.shape[1],
+                ).cpu().numpy()
+                feats[np.all(image[v, u] == 0, axis=-1)] = 0.0  # empty pixels
+                indices.append(idx)
+                features.append(feats)
 
-    descriptors = np.zeros((pcl.shape[0], feature_generator.feature_size), dtype=np.float32)
-    if not indices:
-        return descriptors
-    # Several cameras may see a point: the first occurrence wins, on the host
-    # as in the reference (a scatter with duplicate indices has no defined
-    # winner on the card).
-    all_idx = np.concatenate(indices)
-    _, first = np.unique(all_idx, return_index=True)
-    descriptors[all_idx[first]] = np.concatenate(features)[first]
-    return descriptors
+        with span("descriptors.assemble", timer, dev):
+            descriptors = np.zeros((pcl.shape[0], feature_generator.feature_size), dtype=np.float32)
+            if not indices:
+                return descriptors
+            # Several cameras may see a point: the first occurrence wins, on
+            # the host as in the reference (a scatter with duplicate indices
+            # has no defined winner on the card).
+            all_idx = np.concatenate(indices)
+            _, first = np.unique(all_idx, return_index=True)
+            descriptors[all_idx[first]] = np.concatenate(features)[first]
+            return descriptors
 
 
 def prepare_scene(dataset_dir: Path, scene_file: Path, output_dir: Path, feature_generator=None) -> Path:

@@ -316,13 +316,23 @@ def _split_spec(prefix: str, module: nn.Module) -> Dict[str, tuple]:
     return {}
 
 
+def _check_trainable(cfg: ViTConfig) -> None:
+    """The tp split knows the GELU MLP's `fc1` / `fc2` and no register token."""
+    if cfg.ffn != "mlp" or cfg.num_register_tokens:
+        raise NotImplementedError(
+            f"the trainer splits a GELU-MLP ViT without registers; this config has ffn={cfg.ffn!r} and "
+            f"{cfg.num_register_tokens} register tokens (e.g. dinov2_vitg14_reg), which it would shard wrongly")
+
+
 def shard_vit_params(vit: ViT, adapter: Adapter, mesh=None) -> Tuple[TrainModel, Dict[str, tuple]]:
     """The full-width `vit` and `adapter` in the tp layout of this rank on
     `mesh`'s "model" axis (reference `:101`): their split Linears replaced
     by this rank's blocks (every rank must pass the same full weights).
-    Returns (the model, the split spec)."""
-    axis = _model_axis(mesh)
+    Returns (the model, the split spec). A SwiGLU or register ViT raises
+    NotImplementedError."""
     cfg = vit.cfg
+    _check_trainable(cfg)
+    axis = _model_axis(mesh)
     for blk in vit.blocks:
         blk.attn = ParallelAttention(blk.attn, cfg, axis)
         blk.fc1 = ColumnParallelLinear(blk.fc1, axis)
@@ -348,7 +358,9 @@ def create_train_state(generator: torch.Generator, vit_cfg: ViTConfig, mesh=None
     """(state, split spec, optimizer) (reference `:112`): the ViT and the
     adapter drawn from `generator` on the CPU (the ViT first), split over
     `mesh`'s "model" axis (None: one device), on `device` (default: the
-    card), and AdamW over this rank's parameters."""
+    card), and AdamW over this rank's parameters. A SwiGLU or register ViT
+    raises NotImplementedError."""
+    _check_trainable(vit_cfg)
     dev = resolve_device(device)
     vit = init_vit(vit_cfg, generator, device="cpu")
     adapter = init_adapter(generator, vit_cfg.hidden_size, cfg, device="cpu")
