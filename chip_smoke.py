@@ -122,7 +122,13 @@ odometry B2 and B3, the descriptor passes, featup and train B5:
   `vfmreg_tpu_torch.pipeline.prepare_scenes.create_descriptors`: kernel B5
   once per ViT block, the points with a descriptor exactly those the rig's
   own projection covers, and every descriptor within cosine 0.9999 of a
-  second run with the plain attention;
+  second run with the plain attention. Before it the descriptor assembly
+  (`csrc/assemble_descriptors.cu`) is held bit for bit to its plain version
+  at a rig scan's [16,384 x 384] from five 16 x 20 grids (1536-d in the
+  ViT-g phase, 512-d in the MaskCLIP one), into device memory and into
+  pinned host memory, with its event and CUDA-graph times, its bytes bound
+  and the bus's; each pass launches it once a scan, and `projection.assemble_stats()`
+  counts 8 scans, 8 x 16,384 rows and the covered points as sampled;
 * descriptor_maskclip: the same pass with MaskCLIP (`models/maskclip.py`)
   at CLIP ViT-B/16 full width (768 wide, 12 layers of 12 heads of 64, the
   last block value-only, 512-d out; random seeded weights), the images
@@ -166,7 +172,8 @@ correspondence search besides), B2 once per step call of the ICP loops
 (each call steps every live lane of a row; in the node and the odometry,
 summed over every ICP loop the path ran, `registration.icp.recording_loops`),
 B3 once per rebuild round, B5 12 times per image (11 with MaskCLIP; 12
-per forward of the train path's batch of 16, none in its steps);
+per forward of the train path's batch of 16, none in its steps), the
+descriptor assembly once per scan of the three descriptor passes;
 odometry_xd launches none. Per ICP row it prints the loop's step calls,
 reads and rebuild rounds beside the lanes' iterations and rebuilds, and
 checks them against each other (`loop_check`). No path launches B4 (the ICP
@@ -195,10 +202,12 @@ B3 at the odometry's shapes, kernel_check for B4 at the odometry's cache,
 odometry_free, odometry_idle, odometry_readers_data, odometry_readers for
 each reader, odometry_readers_equal, odometry_xd, kernel_check for B5
 at the pass's own q, k, v, at
-[2, 200, 4, 32] and at T = 320, descriptor, descriptor_vitg14_data,
-kernel_check for B5 at the ViT-g/14-reg pass's [1, 325, 24, 64],
-descriptor_vitg14, kernel_check for B5 at the
-MaskCLIP pass's q, k, v [1, 321, 12, 64], descriptor_maskclip, featup,
+[2, 200, 4, 32] and at T = 320, kernel_check for the assembly at 384-d,
+descriptor, descriptor_vitg14_data,
+kernel_check for B5 at the ViT-g/14-reg pass's [1, 325, 24, 64], for the
+assembly at 1536-d, descriptor_vitg14, kernel_check for B5 at the
+MaskCLIP pass's q, k, v [1, 321, 12, 64], for the assembly at 512-d,
+descriptor_maskclip, featup,
 clip_text, kernel_check for B5 at the trainer's [16, 321, 6, 64], train,
 script: the whole run's seconds), then
 the `kernels` line (per kernel the newest path's numbers, and each path's
@@ -366,6 +375,9 @@ NN_RAGGED_N, NN_SMALL_K, NN_COLD_LAUNCHES, FLUSH_BYTES, SPIN_CYCLES = 16381, 7, 
 # slower. B1 and B5 run 3xTF32 on the tensor cores (three TF32 products per
 # f32 product), so their operation bound is 3 x flops at the TF32 rate.
 PEAKS = {"SXM": (3.35e12, 67e12, 495e12), "PCIe": (2.0e12, 51e12, 378e12)}
+# The host bus of both parts, PCIe 5 x16, one direction: the bound of the
+# descriptor assembly's writes into pinned host memory.
+PCIE5_BYTES_PER_S = 64e9
 # The numbers of a kernel row that are kept for each path that runs it.
 PATH_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -986,6 +998,95 @@ def check_flash(path, q, k, v, peaks):
     return row
 
 
+def assemble_case(dev, d, seed=SEED):
+    """The assembly's inputs at a rig scan's shape: five seeded [16, 20, d]
+    grids on the card and the owners, pixels and image sizes that
+    `create_descriptors` gives a 16,384-point rig cloud. Returns (grids,
+    sizes, owner, u, v)."""
+    import numpy as np
+    import torch
+
+    from vfmreg_tpu_torch.pipeline.prepare_scenes import UNSEEN, _claim
+    from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
+
+    rig = SyntheticCameraRig(seed=seed)
+    cloud = make_rig_cloud(N_SCAN, seed=seed)
+    images = rig.read_images([f"assemble/{cam}.png" for cam in rig.cameras])
+    pcl_h = np.insert(cloud, 3, values=1, axis=1).T
+    meta = np.zeros((3, N_SCAN), dtype=np.int32)
+    meta[0] = UNSEEN
+    for c, (cam, img) in enumerate(images.items()):
+        u, v, idx = rig.project_pcl_to_image(pcl_h, img, cam)
+        _claim(meta, c, u, v, idx, np.all(img[v, u] == 0, axis=-1))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    grids = [torch.randn((16, 20, d), generator=g).to(dev) for _ in images]
+    owner, u, v = torch.from_numpy(meta).to(dev)
+    return grids, [img.shape[:2] for img in images.values()], owner, u, v
+
+
+def check_assemble(path, dev, d, peaks):
+    """The assembly kernel against its plain version on the card, bit for
+    bit, at a rig scan's shape with d-wide grids, writing device memory and
+    writing pinned host memory (as `create_descriptors` runs it). Times:
+    into device memory by events and in a CUDA graph, beside its bytes
+    bound at 3.35 TB/s; into pinned host memory by events, beside the bus's
+    bound (PCIe 5 x16, 64 GB/s) and the copy engine's time for the same
+    block (a kernel into device memory and a copy would cost both)."""
+    import torch
+
+    from vfmreg_tpu_torch.ops.projection import assemble_descriptors, assemble_descriptors_plain
+
+    t0 = time.perf_counter()
+    grids, sizes, owner, u, v = assemble_case(dev, d)
+    got = assemble_descriptors(grids, sizes, owner, u, v)
+    host = torch.empty(got.shape, dtype=torch.float32, pin_memory=True)
+    assemble_descriptors(grids, sizes, owner, u, v, out=host)
+    ref = assemble_descriptors_plain(grids, sizes, owner, u, v)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    same_host = torch.equal(host.view(torch.int32), ref.cpu().view(torch.int32))
+    sampled = int((owner >= 0).sum())
+
+    def call():
+        return assemble_descriptors(grids, sizes, owner, u, v)
+
+    ms = cuda_time_ms(call, reps=200, warmup=10)
+    device_ms = cuda_graph_ms(call, launches=20)  # each call's 100 MB output stays in the graph's pool
+    host_ms = cuda_time_ms(lambda: assemble_descriptors(grids, sizes, owner, u, v, out=host), reps=20, warmup=2)
+    plain_ms = cuda_time_ms(lambda: assemble_descriptors_plain(grids, sizes, owner, u, v), reps=20, warmup=2)
+    copy_ms = cuda_time_ms(lambda: host.copy_(got, non_blocking=True), reps=20, warmup=2)
+    n = got.shape[0]
+    out_bytes = 4 * n * d
+    # Each input byte read once (the grids, the owners and pixels), each
+    # output byte written once; 8 products and 3 sums an element of a
+    # sampled row.
+    nbytes = out_bytes + sum(4 * g.numel() for g in grids) + 3 * 4 * n
+    row = {
+        "name": "assemble_descriptors", "route": "cuda", "ok": same and same_host,
+        "source": "vfmreg_tpu_torch/csrc/assemble_descriptors.cu",
+        "replaces": "none: the reference assembles on the host (vfmreg_tpu/pipeline/prepare_scenes.py)",
+        "max_abs_err": float((got - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
+        **_bound(nbytes, 11.0 * sampled * d, peaks), "library_ms": None, "shape": [n, d, len(grids), 16, 20],
+    }
+    emit({"phase": "kernel_check", "path": path, "kernel": "assemble_descriptors", "device_ms": device_ms,
+          "pinned_out_ms": host_ms, "pinned_out_bound_ms": out_bytes / PCIE5_BYTES_PER_S * 1e3,
+          "pinned_out_gbytes_per_s": out_bytes / host_ms / 1e6, "copy_engine_d2h_ms": copy_ms,
+          "pinned_out_bit_identical": same_host, "rows_sampled": sampled, "gbytes_per_s": nbytes / ms / 1e6,
+          "device_gbytes_per_s": nbytes / device_ms / 1e6, "seconds": time.perf_counter() - t0, **row})
+    if not (same and same_host):
+        raise RuntimeError(f"assemble_descriptors disagrees with its plain version at {row['shape']}: into device "
+                           f"memory {same}, into pinned host memory {same_host}")
+    return row
+
+
+def assembly_counted(launches, assembled, n_covered):
+    """One assembly launch a scan of the batch, every row written once, the
+    rows sampled exactly the covered points (`assembled`: the pass's
+    `projection.assemble_stats()`)."""
+    want = {"scans": BATCH, "rows_written": BATCH * N_SCAN, "rows_sampled": n_covered}
+    return launches.get("assemble_descriptors", 0) == BATCH and assembled == want
+
+
 def drive_descriptor(dev, peaks, rows):
     """The descriptor phase: B5 checked on the pass's own q, k, v (block 0 of
     the first image) and on unit normals, then the pass once, counted, timed
@@ -995,7 +1096,7 @@ def drive_descriptor(dev, peaks, rows):
 
     from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
     from vfmreg_tpu_torch.models.vit import PRESETS
-    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops import _build, projection
     from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
     from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
 
@@ -1020,17 +1121,20 @@ def drive_descriptor(dev, peaks, rows):
     check_flash("key_tile_multiple", *(torch.randn((1, 320, 6, 64), generator=g).to(dev) for _ in range(3)),
                 peaks)
     del q, k, v, batch
+    rows["assemble_descriptors"] = check_assemble("descriptor", dev, 384, peaks)
 
     def run(generator):
         return [create_descriptors(f, rig, generator, c) for f, c in zip(files, clouds)]
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    projection.reset_assemble_stats()
     t0 = time.perf_counter()
     descs = run(gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    assembled = projection.assemble_stats()
     peak = torch.cuda.max_memory_allocated()
     n_images = BATCH * len(rig.cameras)
 
@@ -1052,18 +1156,20 @@ def drive_descriptor(dev, peaks, rows):
         cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-300)
         cos_min = min(cos_min, float(cos.min()))
         max_abs = max(max_abs, float(np.abs(d - dp).max()))
-    launches_ok = launches.get("flash_attention", 0) == VIT_LAYERS * n_images
+    launches_ok = (launches.get("flash_attention", 0) == VIT_LAYERS * n_images
+                   and assembly_counted(launches, assembled, n_covered))
     ok = covered_ok and launches_ok and cos_min >= DESC_COS
     emit({"phase": "descriptor", "ok": ok, "seconds": seconds, "images": n_images,
           "images_per_s": n_images / seconds, "points_per_s": BATCH * N_SCAN / seconds,
           "plain_attention_seconds": plain_seconds, "covered_points": n_covered,
           "expected_covered_points": n_expected, "coverage_exact": covered_ok,
           "min_cosine_vs_plain_attention": cos_min, "max_abs_diff_vs_plain_attention": max_abs,
-          "launches": launches, "peak_memory_bytes": peak})
+          "launches": launches, "assembled": assembled, "peak_memory_bytes": peak})
     if not covered_ok:
         raise RuntimeError(f"descriptor coverage differs from the rig's projection: {n_covered} vs {n_expected}")
     if not launches_ok:
-        raise RuntimeError(f"the descriptor pass did not launch B5 {VIT_LAYERS} x {n_images} times: {launches}")
+        raise RuntimeError(f"the descriptor pass did not launch B5 {VIT_LAYERS} x {n_images} times and the "
+                           f"assembly once a scan: {launches}, {assembled}")
     if cos_min < DESC_COS:
         raise RuntimeError(f"descriptors disagree with plain attention: min cosine {cos_min}")
     return launches
@@ -1080,7 +1186,7 @@ def drive_descriptor_vitg14(dev, peaks, rows):
 
     from vfmreg_tpu_torch.models import vit
     from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
-    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops import _build, projection
     from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
     from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
 
@@ -1105,15 +1211,18 @@ def drive_descriptor_vitg14(dev, peaks, rows):
         q, k, v = blk.attn.qkv(blk.norm1(gen.model.tokens(batch)))
     rows["flash_attention"] = check_flash("descriptor_vitg14", q, k, v, peaks)
     del q, k, v, batch
+    rows["assemble_descriptors"] = check_assemble("descriptor_vitg14", dev, 1536, peaks)
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    projection.reset_assemble_stats()
     counts = dict(vit.FORWARD_COUNTS)
     t0 = time.perf_counter()
     descs = [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    assembled = projection.assemble_stats()
     forwarded = {k: vit.FORWARD_COUNTS[k] - counts.get(k, 0) for k in ("images", "tokens")}
     peak = torch.cuda.max_memory_allocated()
     n_images = BATCH * len(rig.cameras)
@@ -1131,17 +1240,19 @@ def drive_descriptor_vitg14(dev, peaks, rows):
         finite &= bool(np.isfinite(d).all())
         n_covered += int(covered.sum())
     cos_min = float(_cosines(descs[0][np.any(plain != 0, axis=1)], plain[np.any(plain != 0, axis=1)]).min())
-    launches_ok = launches.get("flash_attention", 0) == VITG_LAYERS * n_images
+    launches_ok = (launches.get("flash_attention", 0) == VITG_LAYERS * n_images
+                   and assembly_counted(launches, assembled, n_covered))
     counted_ok = forwarded == {"images": n_images, "tokens": n_images * VITG_TOKENS}
     ok = covered_ok and finite and launches_ok and counted_ok and cos_min >= DESC_COS
     emit({"phase": "descriptor_vitg14", "ok": ok, "seconds": seconds, "images": n_images,
           "images_per_s": n_images / seconds, "scans_per_s": BATCH / seconds, "covered_points": n_covered,
           "coverage_exact": covered_ok, "finite": finite, "forwarded": forwarded,
-          "min_cosine_vs_plain_attention": cos_min, "launches": launches, "peak_memory_bytes": peak})
+          "min_cosine_vs_plain_attention": cos_min, "launches": launches, "assembled": assembled,
+          "peak_memory_bytes": peak})
     if not (covered_ok and finite):
         raise RuntimeError(f"ViT-g descriptors: coverage exact {covered_ok}, finite {finite}")
     if not (launches_ok and counted_ok):
-        raise RuntimeError(f"the ViT-g pass launched B5 {launches} times and forwarded {forwarded}")
+        raise RuntimeError(f"the ViT-g pass launched {launches}, assembled {assembled} and forwarded {forwarded}")
     if cos_min < DESC_COS:
         raise RuntimeError(f"ViT-g descriptors disagree with plain attention: min cosine {cos_min}")
     return launches
@@ -1165,7 +1276,7 @@ def drive_descriptor_maskclip(dev, peaks, rows):
     import torch
 
     from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator, preprocess_image
-    from vfmreg_tpu_torch.ops import _build
+    from vfmreg_tpu_torch.ops import _build, projection
     from vfmreg_tpu_torch.pipeline.prepare_scenes import create_descriptors
     from vfmreg_tpu_torch.pipeline.synthetic import SyntheticCameraRig, make_rig_cloud
 
@@ -1186,14 +1297,17 @@ def drive_descriptor_maskclip(dev, peaks, rows):
         q, k, v = blk.attn.qkv(blk.ln_1(gen.model.tokens(batch)))
     rows["flash_attention"] = check_flash("descriptor_maskclip", q, k, v, peaks)
     del q, k, v, batch
+    rows["assemble_descriptors"] = check_assemble("descriptor_maskclip", dev, 512, peaks)
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    projection.reset_assemble_stats()
     t0 = time.perf_counter()
     descs = [create_descriptors(f, rig, gen, c) for f, c in zip(files, clouds)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    assembled = projection.assemble_stats()
     peak = torch.cuda.max_memory_allocated()
     n_images = BATCH * len(rig.cameras)
 
@@ -1220,20 +1334,23 @@ def drive_descriptor_maskclip(dev, peaks, rows):
     max_abs = float(np.abs(descs[0] - cpu_desc).max())
     width_ok = all(d.shape == (N_SCAN, cfg.embed_dim) for d in descs) and cfg.embed_dim == 512
     softmax_blocks = cfg.num_layers - 1  # the last block is value-only
-    launches_ok = launches.get("flash_attention", 0) == softmax_blocks * n_images
+    launches_ok = (launches.get("flash_attention", 0) == softmax_blocks * n_images
+                   and assembly_counted(launches, assembled, n_covered))
     ok = covered_ok and launches_ok and width_ok and cos_min >= DESC_COS
     emit({"phase": "descriptor_maskclip", "ok": ok, "seconds": seconds, "images": n_images,
           "images_per_s": n_images / seconds, "points_per_s": BATCH * N_SCAN / seconds,
           "descriptor_width": int(descs[0].shape[1]), "covered_points": n_covered,
           "expected_covered_points": n_expected, "coverage_exact": covered_ok,
           "cpu_seconds_first_cloud": cpu_seconds, "min_cosine_vs_cpu": cos_min,
-          "max_abs_diff_vs_cpu": max_abs, "launches": launches, "peak_memory_bytes": peak})
+          "max_abs_diff_vs_cpu": max_abs, "launches": launches, "assembled": assembled,
+          "peak_memory_bytes": peak})
     if not width_ok:
         raise RuntimeError(f"MaskCLIP descriptors are not 512-d: {[d.shape for d in descs]}")
     if not covered_ok:
         raise RuntimeError(f"descriptor coverage differs from the rig's projection: {n_covered} vs {n_expected}")
     if not launches_ok:
-        raise RuntimeError(f"the MaskCLIP pass did not launch B5 {softmax_blocks} x {n_images} times: {launches}")
+        raise RuntimeError(f"the MaskCLIP pass did not launch B5 {softmax_blocks} x {n_images} times and the "
+                           f"assembly once a scan: {launches}, {assembled}")
     if cos_min < DESC_COS:
         raise RuntimeError(f"MaskCLIP descriptors disagree with the CPU evaluation: min cosine {cos_min}")
     return launches, descs, gen
@@ -3304,7 +3421,8 @@ def main() -> int:
           "peak_bytes_per_s": peaks[0], "peak_f32_flops": peaks[1], "peak_tf32_flops": peaks[2]})
 
     t0 = time.perf_counter()
-    _build.build(["cosine_argmax", "gn_moments", "champions_from_planes", "flash_attention", "nn_argmin"])
+    _build.build(["cosine_argmax", "gn_moments", "champions_from_planes", "flash_attention", "nn_argmin",
+                  "assemble_descriptors"])
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
@@ -3475,7 +3593,7 @@ def main() -> int:
     # count.
     kernels = []
     for kname in ("cosine_argmax", "gn_moments_from_cache", "champions_from_planes", "nn_argmin",
-                  "flash_attention"):
+                  "flash_attention", "assemble_descriptors"):
         per_path = {}
         for path, checked in rows.items():
             if kname in checked:

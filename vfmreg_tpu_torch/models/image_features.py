@@ -6,6 +6,8 @@ Counterpart of `vfmreg_tpu/models/image_features.py`:
   (14 for DINOv2, 16 for MaskCLIP) and patch_w = int(scale * img_w / p),
   bilinear with align_corners=False and antialias=False, then ImageNet
   normalisation;
+* `ImageFeatureGenerator.patch_features(image)`: the foundation model's
+  [h, w, D] patch grid as a device tensor, nothing read back;
 * `ImageFeatureGenerator.get_image_features(image, upsample)`: the
   foundation model's forward -> [h, w, D] patch features (DINOv2's ViT,
   `models/vit.py`, 384-d at ViT-S/14; MaskCLIP, `models/maskclip.py`,
@@ -176,6 +178,19 @@ class ImageFeatureGenerator:
                 self._featup_stack = featup.stack_from_state_dict(self.featup_params, self.device)
         return self._featup_stack
 
+    def _preprocess_and_forward(self, image: np.ndarray, timer: Optional[Timer]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the preprocessed [1, H', W', 3] batch, the forward's [h, w, D]
+        patch grid), both on the device."""
+        batch, _ = preprocess_image(image, self.patch_size, self.patch_h, self.device)
+        return batch, self._forward(batch, timer)[0]
+
+    def patch_features(self, image: np.ndarray, timer: Optional[Timer] = None) -> torch.Tensor:
+        """The forward's [h, w, D] f32 patch grid of `image`, on the device:
+        launched, not read back, so the host goes on while the card runs
+        it. `timer` clocks the forward's span `vfmreg.vit`, ending it in a
+        synchronize."""
+        return self._preprocess_and_forward(image, timer)[1]
+
     def get_image_features(
         self, image: np.ndarray, upsample: bool = False, cache_file: Optional[Path] = None,
         timer: Optional[Timer] = None,
@@ -189,19 +204,19 @@ class ImageFeatureGenerator:
             if cache_file.exists():
                 return np.load(cache_file)
 
-        batch, (img_h, img_w) = preprocess_image(image, self.patch_size, self.patch_h, self.device)
-        feats = self._forward(batch, timer)  # [1, h, w, D]
+        batch, feats = self._preprocess_and_forward(image, timer)  # [h, w, D]
         if upsample:
+            img_h, img_w = image.shape[:2]
             stack = self._learned_stack() if self.use_featup else None
             if self.use_featup and stack is None:
                 guide = torch.from_numpy(np.ascontiguousarray(image)).to(self.device).to(torch.float32) / 255.0
-                feats = featup.jbu_upsample(feats[0], guide, img_h, img_w)[None]
+                feats = featup.jbu_upsample(feats, guide, img_h, img_w)
             else:
                 if stack is not None:
-                    feats = featup.jbu_stack_upsample(stack, feats[0], batch[0])[None]
-                feats = F.interpolate(feats.permute(0, 3, 1, 2), size=(img_h, img_w), mode="bilinear",
-                                      align_corners=False, antialias=False).permute(0, 2, 3, 1)
-        out = feats[0].cpu().numpy().astype(np.float32, copy=False)
+                    feats = featup.jbu_stack_upsample(stack, feats, batch[0])
+                feats = F.interpolate(feats.permute(2, 0, 1)[None], size=(img_h, img_w), mode="bilinear",
+                                      align_corners=False, antialias=False)[0].permute(1, 2, 0)
+        out = feats.cpu().numpy().astype(np.float32, copy=False)
 
         if cache_file:
             cache_file.parent.mkdir(parents=True, exist_ok=True)

@@ -3,14 +3,17 @@
 Counterpart of `vfmreg_tpu/pipeline/prepare_scenes.py`:
 
 * `create_descriptors`: per point cloud, the foundation model's patch
-  features for each surround camera, the cloud projected into each camera,
-  per-point descriptors sampled from the patch grid at the projected pixels
-  (`ops/projection.sample_patch_features`), zeros where the image pixel is
-  empty, the first camera winning where several see a point, and zero rows
-  for points no camera sees. NCLT's images are stored rotated 90 degrees
-  clockwise while its projection works in the unrotated frame, so for an
-  `data.nclt.NCLT` sequence the image and the patch grid are rotated back
-  (`np.rot90`, which equals cv2's 90-degree counter-clockwise rotation).
+  grid for each surround camera, kept on the device; the cloud projected
+  into each camera on the host while the card runs the forward, the first
+  camera that sees a point owning it (a zero row where its pixel is empty);
+  then one kernel launch writes every point's descriptor, sampled from its
+  owner's grid at the projected pixel (`ops/projection.assemble_descriptors`,
+  each row `sample_patch_features`), with zero rows for points no camera
+  sees, into pinned host memory. NCLT's images are stored rotated 90
+  degrees clockwise while its projection works in the unrotated frame, so
+  for an `data.nclt.NCLT` sequence the image and the patch grid are
+  rotated back (`np.rot90` / `torch.rot90`, which equal cv2's 90-degree
+  counter-clockwise rotation).
 * `prepare_scene`: a dataset folder and a scene spec -> voxel-downsampled
   map clouds (0.2 m) and registration clouds (0.1 m) with their
   descriptors and poses, written through `data/h5io.save_scene`.
@@ -35,60 +38,84 @@ from vfmreg_tpu_torch.data.nclt import NCLT
 from vfmreg_tpu_torch.data.oxford_robotcar import OxfordRobotcar
 from vfmreg_tpu_torch.kiss.voxelization import voxel_down_sample
 from vfmreg_tpu_torch.models.image_features import ImageFeatureGenerator
-from vfmreg_tpu_torch.ops.projection import sample_patch_features
+from vfmreg_tpu_torch.ops.projection import assemble_descriptors
 from vfmreg_tpu_torch.utils.profiling import span
+
+
+# A point's owner before any camera sees it, and once the first camera that
+# sees it does so on an empty pixel (a zero row that no later camera fills).
+UNSEEN, EMPTY = -1, -2
+
+
+def _claim(meta: np.ndarray, camera: int, u: np.ndarray, v: np.ndarray, idx: np.ndarray,
+           empty: np.ndarray) -> None:
+    """First camera wins: the points of `idx` that no earlier camera saw
+    take `camera` (EMPTY where their pixel is empty) and their pixel (u, v)
+    in `meta` ([3, N]: owner, u, v); within `idx` the first occurrence
+    counts, as in `np.unique(..., return_index=True)` over every camera's
+    indices in camera order."""
+    _, first = np.unique(idx, return_index=True)
+    idx, u, v, empty = idx[first], u[first], v[first], empty[first]
+    new = meta[0, idx] == UNSEEN
+    idx = idx[new]
+    meta[0, idx] = np.where(empty[new], EMPTY, camera)
+    meta[1, idx] = u[new]
+    meta[2, idx] = v[new]
 
 
 def create_descriptors(image_files, sequence, feature_generator, pcl: np.ndarray, timer=None) -> np.ndarray:
     """[N, D] f32 descriptors of the points `pcl` [N, 3] from the images
     `sequence.read_images(filenames=image_files)`; zeros for uncovered points.
+    The array is the caller's: no later call writes into it.
 
     `feature_generator` is a `models.image_features.ImageFeatureGenerator`;
-    the patch sampling runs on its device. `sequence` projects with
+    each image's patch grid stays on its device. `sequence` projects with
     `project_pcl_to_image(pcl_h, image, camera)` (a dataset loader, or
-    `pipeline.synthetic.SyntheticCameraRig`). Spans: the call is
-    `vfmreg.descriptors`, each image's forward `vfmreg.vit`, and each
-    image's projection and sampling, and the first-camera scatter,
-    `vfmreg.descriptors.assemble`; a `utils.profiling.Timer` as `timer`
-    clocks them."""
+    `pipeline.synthetic.SyntheticCameraRig`). Each image's forward is
+    launched and not waited for; while the card runs it, the host projects
+    the cloud into the image and gives each point still unseen to this
+    camera (a zero row where its pixel is empty). After the last image one
+    launch of `ops/projection.assemble_descriptors` writes every row (the
+    owner camera's sample, or zeros); on a card it writes them straight
+    into pinned host memory, so the [N, D] block needs no buffer on the
+    card and no copy. Spans: the call is `vfmreg.descriptors`, each image's
+    forward `vfmreg.vit`, each image's projection and ownership and the
+    final upload and assembly `vfmreg.descriptors.assemble`; a
+    `utils.profiling.Timer` as `timer` clocks them."""
     dev = feature_generator.device
     with span("descriptors", timer, dev):
         images = sequence.read_images(filenames=image_files)
         is_nclt = isinstance(sequence, NCLT)
         pcl_h = np.insert(pcl, 3, values=1, axis=1).T  # 4 x N homogeneous
+        meta = np.zeros((3, pcl.shape[0]), dtype=np.int32)
+        meta[0] = UNSEEN
 
-        indices: List[np.ndarray] = []
-        features: List[np.ndarray] = []
-        for camera, image in images.items():
-            patch_feats = feature_generator.get_image_features(image, upsample=False, timer=timer)
+        grids: List[torch.Tensor] = []
+        sizes: List[tuple] = []
+        for camera_idx, (camera, image) in enumerate(images.items()):
+            grid = feature_generator.patch_features(image, timer=timer)
             with span("descriptors.assemble", timer, dev):
                 if is_nclt:
                     # Project in the unrotated frame: the image and its patch
                     # grid rotated back counter-clockwise.
                     image = np.rot90(image, k=1, axes=(0, 1))
-                    patch_feats = np.ascontiguousarray(np.rot90(patch_feats, k=1, axes=(0, 1)))
+                    grid = torch.rot90(grid, k=1, dims=(0, 1))
+                grids.append(grid.contiguous())
+                sizes.append(image.shape[:2])
                 u, v, idx = sequence.project_pcl_to_image(pcl_h, image, camera)
-                if len(idx) == 0:
-                    continue
-                feats = sample_patch_features(
-                    torch.from_numpy(patch_feats).to(dev), torch.from_numpy(u).to(dev),
-                    torch.from_numpy(v).to(dev), image.shape[0], image.shape[1],
-                ).cpu().numpy()
-                feats[np.all(image[v, u] == 0, axis=-1)] = 0.0  # empty pixels
-                indices.append(idx)
-                features.append(feats)
+                _claim(meta, camera_idx, u, v, idx, np.all(image[v, u] == 0, axis=-1))
 
         with span("descriptors.assemble", timer, dev):
-            descriptors = np.zeros((pcl.shape[0], feature_generator.feature_size), dtype=np.float32)
-            if not indices:
-                return descriptors
-            # Several cameras may see a point: the first occurrence wins, on
-            # the host as in the reference (a scatter with duplicate indices
-            # has no defined winner on the card).
-            all_idx = np.concatenate(indices)
-            _, first = np.unique(all_idx, return_index=True)
-            descriptors[all_idx[first]] = np.concatenate(features)[first]
-            return descriptors
+            if dev.type != "cuda":
+                return assemble_descriptors(grids, sizes, *torch.from_numpy(meta)).numpy()
+            owner, u, v = torch.from_numpy(meta).pin_memory().to(dev, non_blocking=True)
+            # The kernel writes the rows straight into pinned host memory: no
+            # [N, D] buffer on the card, no copy. A new block a call (the
+            # caching host allocator reuses one only once it is freed).
+            out = torch.empty((pcl.shape[0], grids[0].shape[-1]), dtype=torch.float32, pin_memory=True)
+            assemble_descriptors(grids, sizes, owner, u, v, out=out)
+            torch.cuda.current_stream(dev).synchronize()
+            return out.numpy()
 
 
 def prepare_scene(dataset_dir: Path, scene_file: Path, output_dir: Path, feature_generator=None) -> Path:

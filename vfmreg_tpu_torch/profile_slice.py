@@ -36,7 +36,7 @@ It warms up once, then prints JSON lines:
   `registration.icp.GN_STEPS_PER_READ`, the values run in turns; node: the
   node's own stage clock, the kernels' launches and the TEASER solves' GNC
   steps per scene; descriptor: the whole pass, then its images and its ViT features timed apart, and the
-  rest, projection, sampling and dedupe, as the difference; odometry: per
+  rest, the host projection and the assembly that the forwards do not hide, as the difference; odometry: per
   frame, the median and p90 seconds of each stage of `run_odometry`, and
   frames per second, then the seconds of each free-running run of the same
   frames (`odometry_wall`: one synchronize at the end), with the map's
@@ -254,7 +254,7 @@ def _descriptor(reps, dev):
                 for im in ims.values():
                     gen.get_image_features(im)
     acc = dict(timer.totals)
-    acc["projection_sampling_dedupe"] = acc["pass"] - acc["read_images"] - acc["vit_features"]
+    acc["projection_and_assembly"] = acc["pass"] - acc["read_images"] - acc["vit_features"]
     print(json.dumps({"stages": acc, "images": 8 * len(rig.cameras) * reps, "reps": reps,
                       "device": torch.cuda.get_device_name(0)}))
     return run
